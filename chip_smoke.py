@@ -13,10 +13,12 @@ n = 2^16 on the 60-bit chain (8 towers + 3 special primes) and on the
 composite chain (16 towers of ~30 bits), checking the decrypted slots
 against roll(v1*v2, -1) and that every kernel was launched, and finally
 holds every key and ciphertext of a small (n = 1024) run on the card equal
-to the same run on the CPU twins. The line
-before the last is a JSON object with each kernel's launches, error against
-its twin and times; the last line is the JSON device summary. There is no
-CPU path: without a CUDA device it exits non-zero.
+to the same run on the CPU twins. The line before the last is a JSON
+object with each kernel's launches, error against its twin, times (L2-warm
+``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
+least time the card could take for the call; the last line is the JSON
+device summary. There is no CPU path:
+without a CUDA device it exits non-zero.
 """
 
 import json
@@ -31,6 +33,13 @@ RING_DIM = 1 << 16
 TOWERS = 8
 BOUND = 1e-4  # the JAX package's bound at this size (e2e_scale.py)
 
+# Published peaks of one H100 SXM: 3.35 TB/s of HBM; 67 TFLOP/s of float32
+# outside the tensor cores is 128 lanes x 2 on each of 132 SMs at 1.98 GHz,
+# and 32-bit integer multiply-adds run on 64 lanes an SM: 16.75e12 a second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+FLUSH_BYTES = 192 << 20  # several times the 50 MB L2
+
 
 def log(*a):
     print(*a, flush=True)
@@ -44,17 +53,21 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of fn() over `reps` calls. The calls are captured in
-    one CUDA graph and the replay is timed with CUDA events, so the host's
-    cost of each call (Python, ctypes) is not counted: for the short kernels
-    it exceeds the kernel's own time. A warm-up call first builds every
+    """Mean device time of fn() (or of a tuple of functions called in turn)
+    over `reps` calls. The calls are captured in one CUDA graph and the
+    replay is timed with CUDA events, so the host's cost of each call
+    (Python, ctypes) is not counted: for the short kernels it exceeds the
+    kernel's own time. A warm-up call first builds every
     table and cache outside the capture."""
-    fn()
+    calls = fn if isinstance(fn, tuple) else (fn,)
+    for f in calls:
+        f()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
+            for f in calls:
+                f()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -68,21 +81,79 @@ def cuda_ms(fn, reps):
     return ms
 
 
-def compare(name, kernel, plain, reps=20):
+_flush_buf = {}
+
+
+def flush_l2():
+    """Rewrite a buffer several times the L2's size, so that what follows
+    finds its operands in device memory."""
+    if "buf" not in _flush_buf:
+        _flush_buf["buf"] = torch.zeros(FLUSH_BYTES // 8, dtype=torch.int64,
+                                        device="cuda")
+    _flush_buf["buf"].add_(1)
+
+
+def cold_ms(fn, reps):
+    """Device time of fn() on a cold L2: (flush, fn) pairs minus the flushes
+    alone, both as graph replays."""
+    return max(cuda_ms((flush_l2, fn), reps) - cuda_ms((flush_l2,), reps),
+               0.0)
+
+
+def bound(nbytes, ops):
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the HBM rate, or the 32-bit integer
+    operations at the integer rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": 1e3 * t_bytes, "operations_ms": 1e3 * t_ops}
+
+
+def ntt_bound(rows, towers, n):
+    """NTT of [rows, n] over `towers` moduli: the data read and written
+    (16 bytes a coefficient) and the twist with its precon (16 bytes a tower
+    coefficient); n/2 log2 n butterflies a row at 16 integer operations (a
+    Shoup product is ten 32-bit multiply-adds, then three two-word
+    additions) and n twists at 12."""
+    butterflies = rows * (n // 2) * (n.bit_length() - 1)
+    return bound(16 * rows * n + 16 * towers * n,
+                 16 * butterflies + 12 * rows * n)
+
+
+def ks_bound(ndig, rows, n):
+    """ks_inner_product over [ndig, rows, n]: the digits, both key halves and
+    both outputs once; per output a 64x64->128 product a digit (four
+    multiply-adds and four additions to accumulate) and a final reduction of
+    some twenty operations."""
+    return bound(8 * rows * n * (3 * ndig + 2), rows * n * 2 * (8 * ndig + 20))
+
+
+def fused_mac_bound(rows, n):
+    """fused_mac_mod over [rows, n]: three operands and one result, one
+    product and one reduction a coefficient."""
+    return bound(8 * rows * n * 4, rows * n * 28)
+
+
+def compare(name, kernel, plain, bound_, reps=20):
     """Kernel against twin on the same inputs: bit-equal, and both timed."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+    err = int((got - want).abs().max())
+    if err or not torch.equal(got, want):
         raise AssertionError(f"{name}: kernel differs from its twin "
                              f"(max abs err {err})")
     ms = cuda_ms(kernel, reps)
+    cold = cold_ms(kernel, reps)
     plain_ms = cuda_ms(plain, max(2, reps // 10))
-    log(f"  {name}: torch.equal to twin; kernel {ms:.4f} ms, "
-        f"twin {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    log(f"  {name}: torch.equal to twin; kernel {ms:.4f} ms warm, "
+        f"{cold:.4f} ms cold L2, twin {plain_ms:.4f} ms, bound "
+        f"{bound_['bound_ms']:.4f} ms ({bound_['bound_by']})")
+    # no single PyTorch call computes a negacyclic NTT modulo q or a modular
+    # multiply-accumulate on 60-bit residues: there is no library time
+    return {"shape": name.split(" ", 1)[1], "max_abs_err": err, "ms": ms,
+            "cold_ms": cold, "plain_ms": plain_ms, **bound_,
+            "library_ms": None}
 
 
 def uniform(moduli, shape, rng, device):
@@ -92,29 +163,39 @@ def uniform(moduli, shape, rng, device):
 
 
 def check_kernels(ctx60, ctx30, device):
-    """Phase 2: each kernel against its twin at the main path's shapes; the
-    NTT entries of the summary keep the last (keyswitch) shape."""
+    """Phase 2: each kernel against its twin at the main path's shapes (and
+    one ring dimension that takes the NTT's generic path). The NTT entries of
+    the summary are the keyswitch mod-up shape's and list every shape under
+    ``shapes``."""
     from openfhe_tpu_torch.ops import elementwise, modular, ntt
 
     rng = np.random.default_rng(3)
     n = RING_DIM
     results = {}
     qp = ctx60.q_moduli + ctx60.p_moduli
-    cases = [("[8, 65536] 60-bit", ctx60.q_moduli, ()),
-             ("[16, 65536] 30-bit", ctx30.q_moduli, ()),
-             ("[3, 11, 65536] 60-bit QP", qp, (3,))]
-    for label, moduli, lead in cases:
-        x = uniform(moduli, lead + (n,), rng, device)
-        t = ntt.tables(n, moduli, device)
+    cases = [("[8, 65536] 60-bit", ctx60.q_moduli, (), n),
+             ("[16, 65536] 30-bit", ctx30.q_moduli, (), n),
+             ("[1, 65536] 60-bit", ctx60.q_moduli[-1:], (), n),
+             ("[2, 11, 65536] 60-bit QP", qp, (2,), n),
+             ("[3, 8, 2048] 60-bit generic path", ctx60.q_moduli, (3,), 2048),
+             ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
+    shapes = {"ntt_forward": [], "ntt_inverse": []}
+    for label, moduli, lead, dim in cases:
+        x = uniform(moduli, lead + (dim,), rng, device)
+        t = ntt.tables(dim, moduli, device)
+        bound_ = ntt_bound(x.numel() // dim, len(moduli), dim)
         fwd = compare(f"ntt_forward {label}", lambda: ntt.forward(x, moduli),
-                      lambda: ntt.forward_plain(x, t))
+                      lambda: ntt.forward_plain(x, t), bound_)
         y = ntt.forward(x, moduli)
         inv = compare(f"ntt_inverse {label}", lambda: ntt.inverse(y, moduli),
-                      lambda: ntt.inverse_plain(y, t))
+                      lambda: ntt.inverse_plain(y, t), bound_)
         if not torch.equal(ntt.inverse(y, moduli), x):
             raise AssertionError(f"inverse(forward(x)) != x at {label}")
         log(f"  inverse(forward(x)) == x at {label}")
-        results["ntt_forward"], results["ntt_inverse"] = fwd, inv
+        shapes["ntt_forward"].append(fwd)
+        shapes["ntt_inverse"].append(inv)
+    for name, per_shape in shapes.items():
+        results[name] = {**per_shape[-1], "shapes": per_shape}
 
     mod = modular.make_mod_consts(qp, device)
     digits = uniform(qp, (3, n), rng, device)
@@ -126,12 +207,13 @@ def check_kernels(ctx60, ctx30, device):
         "ks_inner_product [3, 11, 65536] 60-bit QP",
         lambda: elementwise.ks_inner_product(digits, kb, ka, rows, mod),
         lambda: elementwise.ks_inner_product_plain(
-            digits, kb, ka, rows_t, mod))
+            digits, kb, ka, rows_t, mod), ks_bound(3, len(qp), n))
     x, y, acc = digits[0], kb[0], ka[0]
     results["fused_mac_mod"] = compare(
         "fused_mac_mod [11, 65536] 60-bit QP",
         lambda: elementwise.fused_mac_mod(x, y, acc, mod),
-        lambda: elementwise.fused_mac_plain(x, y, acc, mod))
+        lambda: elementwise.fused_mac_plain(x, y, acc, mod),
+        fused_mac_bound(len(qp), n))
     return results
 
 

@@ -7,6 +7,9 @@ hand-written CUDA kernels (``csrc/``) built on first use by ``_build``.
 Each kernel wrapper launches its kernel for a CUDA tensor and runs a plain
 PyTorch twin of the same function for a CPU tensor.
 
-Host-only helpers (``nbtheory``, ``sampling``, ``security``, ``encoding``)
-are imported from ``openfhe_tpu``; none of them imports jax.
+The package imports nothing of ``openfhe_tpu``: the host-only helpers
+(``utils.nbtheory``, ``utils.sampling``, ``utils.security``, ``encoding``)
+are its own copies. Entry points that take a ``device`` place tensors on the
+current CUDA device unless the caller asks for another (``device="cpu"``)
+and raise when there is none.
 """

@@ -1,10 +1,15 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
 The sources are compiled on first use into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds):
+C interface (no PyTorch headers, so a build takes seconds). Every source is
+compiled by its own nvcc, all started together, and the objects are linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/libopenfhe_tpu_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o build/<name>_<hash>.o csrc/<name>.cu
+    nvcc -shared -o build/libopenfhe_tpu_torch_<hash>.so build/*_<hash>.o
+
+ptxas' report of registers, shared memory and spills for each kernel is kept
+beside the library as ``build/libopenfhe_tpu_torch_<hash>.log``.
 
 The library lands in ``openfhe_tpu_torch/build/`` under a name that carries
 the hash of the sources and flags, so an edited source is rebuilt and a
@@ -29,7 +34,7 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,7 +52,7 @@ _LIB: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one ran
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -70,6 +75,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libopenfhe_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands together; their combined output, or raise on the
+    first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it already exists."""
     global build_seconds
@@ -77,15 +96,22 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem.rsplit('_', 1)[1]}.{os.getpid()}"
+    units = [(src, BUILD_DIR / f"{src.stem}_{tag}.o")
+             for src in _sources() if src.suffix == ".cu"]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc_bin = nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    try:
+        log = _run_all([[nvcc_bin, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in units])
+        log += _run_all([[nvcc_bin, "-shared", "-o", str(tmp),
+                          *[str(obj) for _, obj in units]]])
+    finally:
+        for _, obj in units:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+    so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)
     return so
 
@@ -113,6 +139,19 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device. None means the current CUDA device: the
+    port runs on the card unless the caller asks for the CPU, and never falls
+    back to it by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device: the port runs on the card by default; pass '
+            'device="cpu" to run the plain PyTorch twins on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

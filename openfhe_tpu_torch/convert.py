@@ -5,7 +5,9 @@ port stores one int64. The ``*_from_jax`` functions take the JAX package's
 objects (read through their array attributes with ``numpy.asarray``, so this
 module never imports jax) and return the port's objects; the ``*_to_numpy``
 functions return numpy arrays in the JAX package's field layout, ready for
-its constructors.
+its constructors. Like every entry point of the port, the ``*_from_jax``
+functions place tensors on the current CUDA device unless the caller passes
+``device`` (``"cpu"`` in the CPU tests).
 """
 
 from __future__ import annotations
@@ -13,15 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import dcrt, keyswitch
+from . import _build, dcrt, keyswitch
 from .models import ckks
 
 
-def u64_to_tensor(lo, hi, device="cpu") -> torch.Tensor:
-    """uint32 lo/hi planes -> int64 tensor lo | hi << 32."""
+def u64_to_tensor(lo, hi, device=None) -> torch.Tensor:
+    """uint32 lo/hi planes -> int64 tensor lo | hi << 32 on `device`
+    (None: the current CUDA device)."""
     lo = np.asarray(lo).astype(np.int64)
     hi = np.asarray(hi).astype(np.int64)
-    return torch.from_numpy(lo | (hi << 32)).to(device)
+    return torch.from_numpy(lo | (hi << 32)).to(
+        _build.resolve_device(device))
 
 
 def tensor_to_u64(t: torch.Tensor):
@@ -31,7 +35,7 @@ def tensor_to_u64(t: torch.Tensor):
             (v >> np.uint64(32)).astype(np.uint32))
 
 
-def poly_from_jax(p, device="cpu") -> dcrt.RnsPoly:
+def poly_from_jax(p, device=None) -> dcrt.RnsPoly:
     """JAX RnsPoly -> port RnsPoly."""
     return dcrt.RnsPoly(u64_to_tensor(p.lo, p.hi, device),
                         dcrt.RnsBasis(p.basis.n, p.basis.moduli),
@@ -48,7 +52,7 @@ def ks_params_from_jax(p) -> keyswitch.KSParams:
                               p.alpha, p.plaintext_correction)
 
 
-def kskey_from_jax(k, device="cpu") -> keyswitch.KSKey:
+def kskey_from_jax(k, device=None) -> keyswitch.KSKey:
     return keyswitch.KSKey(u64_to_tensor(k.b_lo, k.b_hi, device),
                            u64_to_tensor(k.a_lo, k.a_hi, device),
                            ks_params_from_jax(k.params))
@@ -59,7 +63,7 @@ def kskey_to_numpy(k: keyswitch.KSKey):
     return tensor_to_u64(k.b) + tensor_to_u64(k.a)
 
 
-def public_key_from_jax(pk, device="cpu") -> ckks.PublicKey:
+def public_key_from_jax(pk, device=None) -> ckks.PublicKey:
     return ckks.PublicKey(poly_from_jax(pk.b, device),
                           poly_from_jax(pk.a, device))
 
@@ -77,7 +81,7 @@ def secret_key_to_numpy(sk: ckks.SecretKey) -> np.ndarray:
     return sk.coeffs.copy()
 
 
-def ciphertext_from_jax(ct, device="cpu") -> ckks.Ciphertext:
+def ciphertext_from_jax(ct, device=None) -> ckks.Ciphertext:
     return ckks.Ciphertext(tuple(poly_from_jax(p, device) for p in ct.polys),
                            float(ct.scale))
 

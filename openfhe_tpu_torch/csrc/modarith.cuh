@@ -3,8 +3,12 @@
 // Residues are reduced values in [0, q) with q < 2^62, carried in int64
 // tensors and read here as unsigned 64-bit words. Shoup precons
 // floor(c * 2^64 / q) use the full unsigned range; the tensors hold their
-// bit pattern. Every function returns the unique reduced residue, the same
-// value as the plain PyTorch twins in ops/modular.py.
+// bit pattern. The eager functions return the unique reduced residue, the
+// same value as the plain PyTorch twins in ops/modular.py. The lazy (Harvey)
+// functions beside them skip the final compare-and-subtract and keep values
+// in [0, 2q) or [0, 4q); 4q < 2^64 because q < 2^62. Their callers reduce
+// once before anything is stored for a reader, so only the reduced residue is
+// ever observable.
 #pragma once
 
 #include <cstdint>
@@ -26,6 +30,48 @@ __device__ __forceinline__ u64 mul_shoup(u64 x, u64 w, u64 wp, u64 q) {
   const u64 h = __umul64hi(x, wp);
   const u64 r = x * w - h * q;
   return r >= q ? r - q : r;
+}
+
+// Lazy Shoup product: congruent to x * w mod q, in [0, 2q), for ANY 64-bit x
+// (so it also absorbs an unreduced input) and a constant w < q.
+__device__ __forceinline__ u64 mul_shoup_lazy(u64 x, u64 w, u64 wp, u64 q) {
+  return x * w - __umul64hi(x, wp) * q;
+}
+
+// x - m if x >= m else x, for x < 2m and m <= 2^63: the difference wraps to
+// a value with the top bit set exactly when x < m, so its sign decides (one
+// instruction cheaper than the 64-bit compare).
+__device__ __forceinline__ u64 cond_sub(u64 x, u64 m) {
+  const u64 d = x - m;
+  return (long long)d < 0 ? x : d;
+}
+
+// [0, 2q) -> [0, q).
+__device__ __forceinline__ u64 reduce_2q(u64 x, u64 q) { return cond_sub(x, q); }
+
+// [0, 4q) -> [0, q); q2 = 2q.
+__device__ __forceinline__ u64 reduce_4q(u64 x, u64 q, u64 q2) {
+  return reduce_2q(cond_sub(x, q2), q);
+}
+
+// Lazy Cooley-Tukey butterfly (forward NTT): x, y in [0, 4q) on entry and on
+// exit; (x, y) <- (x + w*y, x - w*y) mod q. q2 = 2q.
+__device__ __forceinline__ void ct_lazy(u64& x, u64& y, u64 w, u64 wp, u64 q,
+                                        u64 q2) {
+  const u64 u = cond_sub(x, q2);                 // [0, 2q)
+  const u64 t = mul_shoup_lazy(y, w, wp, q);     // [0, 2q)
+  x = u + t;                                     // [0, 4q)
+  y = u - t + q2;                                // (0, 4q)
+}
+
+// Lazy Gentleman-Sande butterfly (inverse NTT): x, y in [0, 2q) on entry and
+// on exit; (x, y) <- (x + y, (x - y) * w) mod q. q2 = 2q.
+__device__ __forceinline__ void gs_lazy(u64& x, u64& y, u64 w, u64 wp, u64 q,
+                                        u64 q2) {
+  const u64 s = x + y;                           // [0, 4q)
+  const u64 d = x - y + q2;                      // (0, 4q)
+  x = cond_sub(s, q2);                           // [0, 2q)
+  y = mul_shoup_lazy(d, w, wp, q);               // [0, 2q)
 }
 
 // x mod q for any 64-bit x, with mu = floor(2^64 / q).

@@ -9,7 +9,7 @@ Q*P, so one key made at full level switches at every level.
 Applying it to c over Q_l (EVAL): one inverse NTT, per digit a basis switch
 into the complement and one batched forward NTT over Q_l*P
 (``hoist_decompose``), the digit inner product with the key (the
-``ks_inner_product`` kernel), then a mod-down by P per output
+``ks_inner_product`` kernel), then one mod-down by P over both outputs
 (``hoist_inner_product``).
 
 Randomness comes from the caller's numpy Generator in the JAX package's
@@ -25,13 +25,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from openfhe_tpu.utils import sampling
-
 from . import dcrt
 from .dcrt import Format, RnsBasis, RnsPoly
 from .ops import automorph, elementwise, ntt, rns
 from .ops.modular import (add_mod, mul_mod, mul_mod_shoup, shoup_consts,
                           sub_mod)
+from .utils import sampling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,18 +194,16 @@ def hoist_inner_product(key: KSKey, digits: torch.Tensor, basis: RnsBasis
     Lfull = len(params.q_moduli)
     # active key rows: q_0..q_{lvl-1} then the P block
     rows = list(range(lvl)) + list(range(Lfull, Lfull + len(params.p_moduli)))
-    acc0, acc1 = elementwise.ks_inner_product(digits, key.b, key.a, rows,
-                                              eb.mod(digits.device))
-
-    def mod_down(acc: torch.Tensor) -> torch.Tensor:
-        cc = ntt.inverse(acc, eb.moduli)
-        down = rns.approx_mod_down(cc[:lvl], cc[lvl:], q_act,
-                                   params.p_moduli,
-                                   params.plaintext_correction)
-        return ntt.forward(down, q_act)
-
-    return (RnsPoly(mod_down(acc0), basis, Format.EVAL),
-            RnsPoly(mod_down(acc1), basis, Format.EVAL))
+    acc = elementwise.ks_inner_product(digits, key.b, key.a, rows,
+                                       eb.mod(digits.device))
+    # both halves as one [2, l+K, n] batch: one inverse NTT, one basis
+    # conversion and one forward NTT
+    cc = ntt.inverse(acc, eb.moduli)
+    down = rns.approx_mod_down(cc[:, :lvl], cc[:, lvl:], q_act,
+                               params.p_moduli, params.plaintext_correction)
+    d = ntt.forward(down, q_act)
+    return (RnsPoly(d[0], basis, Format.EVAL),
+            RnsPoly(d[1], basis, Format.EVAL))
 
 
 def apply(key: KSKey, c: RnsPoly) -> Tuple[RnsPoly, RnsPoly]:

@@ -5,7 +5,7 @@ Counterpart of ``openfhe_tpu/models/ckks.py``: context generation with the
 60-bit or the composite (~30-bit, ``composite_degree=2``) modulus chain,
 ternary-secret keygen, public-key encryption, add/sub/mult, relinearization
 and hoisted rotation by hybrid key switching, FIXEDMANUAL rescaling, and
-complex packed encode/decode (``openfhe_tpu.encoding``, host numpy).
+complex packed encode/decode (``encoding``, host numpy).
 
 The context carries its torch device; every tensor of its keys and
 ciphertexts lives there. Randomness is the caller's numpy Generator, drawn in
@@ -23,12 +23,10 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from openfhe_tpu import encoding
-from openfhe_tpu.utils import nbtheory, sampling, security
-
-from .. import dcrt, keyswitch
+from .. import _build, dcrt, encoding, keyswitch
 from ..dcrt import Format, RnsBasis, RnsPoly
 from ..ops import rns
+from ..utils import nbtheory, sampling, security
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,11 +124,14 @@ def _composite_chain(params: CKKSParams, m: int):
     return qs, used
 
 
-def gen_context(params: CKKSParams, device="cpu") -> CKKSContext:
+def gen_context(params: CKKSParams, device=None) -> CKKSContext:
     """Build the modulus chain (same primes as the JAX package's
     gen_context): scaling primes alternate just below/above
     2^scaling_mod_size, special primes scan down from 2^60 (2^30 for a
-    composite chain)."""
+    composite chain). The context lives on `device`; None means the current
+    CUDA device, and without one this raises (pass device="cpu" to run on
+    the CPU)."""
+    device = _build.resolve_device(device)
     n = params.ring_dim
     m = 2 * n
     L = params.num_towers
@@ -175,7 +176,7 @@ def gen_context(params: CKKSParams, device="cpu") -> CKKSContext:
         cursor = nbtheory.previous_prime(cursor, m)
     log_qp = sum(q.bit_length() for q in qs) + sum(p.bit_length() for p in ps)
     security.validate(n, log_qp, params.security_level)
-    return CKKSContext(params, tuple(qs), tuple(ps), torch.device(device))
+    return CKKSContext(params, tuple(qs), tuple(ps), device)
 
 
 # ---------------------------------------------------------------------------
@@ -399,15 +400,18 @@ def eval_mult_relin(ct1: Ciphertext, ct2: Ciphertext,
 
 
 def rescale(ct: Ciphertext, degree: int = 1) -> Ciphertext:
-    """Drop the last `degree` towers, dividing by each (FIXEDMANUAL)."""
+    """Drop the last `degree` towers, dividing by each (FIXEDMANUAL). The
+    polynomials are stacked, so each dropped tower costs one inverse and one
+    forward NTT for the whole ciphertext."""
+    data = torch.stack([p.data for p in ct.polys])          # [polys, L, n]
+    basis, scale = ct.basis, ct.scale
     for _ in range(degree):
-        assert ct.towers >= 2, "rescale needs at least 2 towers"
-        moduli = ct.basis.moduli
-        new_basis = ct.basis.drop_last()
-        polys = tuple(RnsPoly(rns.rescale_eval(p.data, moduli), new_basis,
-                              Format.EVAL) for p in ct.polys)
-        ct = Ciphertext(polys, ct.scale / moduli[-1])
-    return ct
+        assert basis.L >= 2, "rescale needs at least 2 towers"
+        data = rns.rescale_eval(data, basis.moduli)
+        scale = scale / basis.moduli[-1]
+        basis = basis.drop_last()
+    return Ciphertext(tuple(RnsPoly(d, basis, Format.EVAL) for d in data),
+                      scale)
 
 
 def rescale_ctx(ctx: CKKSContext, ct: Ciphertext) -> Ciphertext:

@@ -5,8 +5,9 @@ Counterpart of ``openfhe_tpu/ops/elementwise_pallas.py`` (``fused_mac_mod``)
 and of the inner product loop of ``openfhe_tpu/keyswitch.py:368-396``.
 
 * ``ks_inner_product(digits, key_b, key_a, rows, mod)``: for each output row
-  r, acc0[r] = sum_d digits[d, r] * key_b[d, rows[r]] mod q_r and the same
-  with key_a — the whole digit loop in one kernel pass.
+  r, acc[0, r] = sum_d digits[d, r] * key_b[d, rows[r]] mod q_r and acc[1]
+  the same with key_a — the whole digit loop in one kernel pass, both halves
+  in one [2, R, n] tensor so the mod-down that follows is one batch.
 * ``fused_mac_mod(x, y, acc, mod)``: (acc + x*y) mod q over [R, n], the
   Pallas kernel's exact contract.
 
@@ -80,15 +81,16 @@ def ks_inner_product_plain(digits, key_b, key_a, rows, mod: ModConsts):
         else:
             acc0 = add_mod(acc0, t0, mod.q)
             acc1 = add_mod(acc1, t1, mod.q)
-    return acc0, acc1
+    return torch.stack([acc0, acc1])
 
 
 def ks_inner_product(digits: torch.Tensor, key_b: torch.Tensor,
                      key_a: torch.Tensor, rows: Sequence[int],
                      mod: ModConsts):
-    """(sum_d digits[d] * key_b[d, rows], sum_d digits[d] * key_a[d, rows])
-    mod q per row. digits: [ndig, R, n]; key_b, key_a: [dnum, Lfull+K, n]
-    with dnum >= ndig; rows: the R active key rows; mod: [R, 1] constants."""
+    """[2, R, n]: sum_d digits[d] * key_b[d, rows] and sum_d digits[d] *
+    key_a[d, rows], mod q per row. digits: [ndig, R, n]; key_b, key_a:
+    [dnum, Lfull+K, n] with dnum >= ndig; rows: the R active key rows; mod:
+    [R, 1] constants."""
     ndig, R, n = digits.shape
     rows = tuple(int(r) for r in rows)
     if key_b.shape != key_a.shape or key_b.dim() != 3 or \
@@ -107,15 +109,14 @@ def ks_inner_product(digits: torch.Tensor, key_b: torch.Tensor,
                             key_a.contiguous())
     _build.require_cuda("ks_inner_product", digits, key_b, key_a, rows_t,
                         *consts)
-    out0 = torch.empty((R, n), dtype=torch.int64, device=digits.device)
-    out1 = torch.empty_like(out0)
+    out = torch.empty((2, R, n), dtype=torch.int64, device=digits.device)
     _build.check("ks_inner_product", _build.library().ks_inner_product(
         digits.data_ptr(), key_b.data_ptr(), key_a.data_ptr(),
         rows_t.data_ptr(), ndig, R, key_b.shape[1], n,
-        *[c.data_ptr() for c in consts], out0.data_ptr(), out1.data_ptr(),
-        _build.stream()))
+        *[c.data_ptr() for c in consts], out[0].data_ptr(),
+        out[1].data_ptr(), _build.stream()))
     ks_inner_product.launches += 1
-    return out0, out1
+    return out
 
 
 fused_mac_mod.launches = 0

@@ -27,6 +27,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from .. import _build
+
 MASK32 = 0xFFFFFFFF
 MAX_MODULUS_BITS = 62  # 2q < 2^63: a sum of two residues stays positive
 
@@ -38,9 +40,11 @@ def u64_array(values) -> np.ndarray:
     return np.asarray(values, dtype=np.uint64).view(np.int64)
 
 
-def int_tensor(values, device="cpu") -> torch.Tensor:
-    """``u64_array`` as a tensor on `device`."""
-    return torch.from_numpy(u64_array(values)).to(device)
+def int_tensor(values, device=None) -> torch.Tensor:
+    """``u64_array`` as a tensor on `device` (None: the current CUDA
+    device)."""
+    return torch.from_numpy(u64_array(values)).to(
+        _build.resolve_device(device))
 
 
 def shoup_precon_int(c: int, q: int) -> int:
@@ -88,11 +92,12 @@ def _mod_consts(moduli: tuple, trailing_dims: int, device: str) -> ModConsts:
     return ModConsts(mk(moduli), mk(mus), mk(r64s), mk(pres))
 
 
-def make_mod_consts(moduli: Sequence[int], device="cpu",
+def make_mod_consts(moduli: Sequence[int], device=None,
                     trailing_dims: int = 1) -> ModConsts:
-    """Host: ModConsts shaped [L] + [1]*trailing_dims, cached per device."""
+    """Host: ModConsts shaped [L] + [1]*trailing_dims, cached per device
+    (None: the current CUDA device)."""
     return _mod_consts(tuple(int(q) for q in moduli), trailing_dims,
-                       str(torch.device(device)))
+                       str(_build.resolve_device(device)))
 
 
 def check_reduced(x: torch.Tensor, q: torch.Tensor, what: str) -> None:

@@ -8,8 +8,10 @@ then n2-point NTTs along the rows; the row-major result is ``ntt.forward``'s
 slot order (slot j holds p(psi^(2*bitrev(j)+1))). The inverse runs
 Gentleman-Sande stages in reverse with 1/n folded into the untwist.
 
-``forward``/``inverse`` launch the CUDA kernel (``csrc/ntt.cu``) for a CUDA
-tensor and run ``forward_plain``/``inverse_plain`` — the same decomposition
+``forward``/``inverse`` launch the CUDA kernel (``csrc/ntt.cu``: radix-16
+rounds in registers with lazy butterflies for n = 2^12..2^17, radix-2 stages
+in shared memory for every other n, the same tables and the same bits) for
+a CUDA tensor and run ``forward_plain``/``inverse_plain`` — the same decomposition
 in plain PyTorch, with the same tables — for a CPU tensor. There is no
 fallback between the two.
 
@@ -27,10 +29,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from openfhe_tpu.utils import nbtheory
-
 from .. import _build
-from .modular import (add_mod, check_reduced, mul_mod_shoup,
+from ..utils import nbtheory
+from .modular import (add_mod, check_modulus, check_reduced, mul_mod_shoup,
                       shoup_precon_int, sub_mod, u64_array)
 
 MAX_N1 = 4096  # a kernel tile holds one whole column transform
@@ -110,6 +111,7 @@ def _tables(n: int, moduli: tuple, device: str) -> NTTTables:
     if n & (n - 1) or n < 2:
         raise ValueError(f"ring dimension {n} is not a power of two >= 2")
     for q in moduli:
+        check_modulus(q)  # the kernels' lazy butterflies hold values < 4q
         if (q - 1) % (2 * n):
             raise ValueError(f"{q} is not NTT-friendly for 2n={2 * n}")
     n1, n2 = split_factors(n)

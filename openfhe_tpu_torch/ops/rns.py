@@ -17,6 +17,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import _build
 from . import ntt
 from .modular import (add_mod, int_tensor, make_mod_consts, mul_mod_shoup,
                       shoup_consts, shoup_precon_int, sub_mod,
@@ -42,16 +43,17 @@ def _switch_basis_tables(from_moduli: tuple, to_moduli: tuple, device: str):
     return qhi, (vals, pres)
 
 
-def switch_basis_tables(from_moduli, to_moduli, device="cpu"):
-    """((qhat_inv [L,1], precon), (qhat_mod_p [K,L,1], precon))."""
+def switch_basis_tables(from_moduli, to_moduli, device=None):
+    """((qhat_inv [L,1], precon), (qhat_mod_p [K,L,1], precon)) on `device`
+    (None: the current CUDA device)."""
     return _switch_basis_tables(tuple(from_moduli), tuple(to_moduli),
-                                _dev(device))
+                                str(_build.resolve_device(device)))
 
 
 def approx_switch_basis(x: torch.Tensor, from_moduli, to_moduli
                         ) -> torch.Tensor:
-    """HPS approximate CRT basis switch of a COEFF residue stack x [L, n]
-    over `from_moduli` to [K, n] over `to_moduli`:
+    """HPS approximate CRT basis switch of a COEFF residue stack x
+    [..., L, n] over `from_moduli` to [..., K, n] over `to_moduli`:
 
         y_j = sum_i [x_i * QHatInv_i]_{q_i} * [QHat_i]_{p_j}  (mod p_j)
     """
@@ -59,10 +61,11 @@ def approx_switch_basis(x: torch.Tensor, from_moduli, to_moduli
         from_moduli, to_moduli, x.device)
     qf = make_mod_consts(from_moduli, x.device).q
     qt = make_mod_consts(to_moduli, x.device).q
-    y = mul_mod_shoup(x, qhi, qhi_pre, qf)             # [L, n]
+    y = mul_mod_shoup(x, qhi, qhi_pre, qf)             # [..., L, n]
     acc = None
     for i in range(len(from_moduli)):
-        term = mul_mod_shoup(y[i][None, :], qh_p[:, i], qh_p_pre[:, i], qt)
+        term = mul_mod_shoup(y[..., i:i + 1, :], qh_p[:, i], qh_p_pre[:, i],
+                             qt)
         acc = term if acc is None else add_mod(acc, term, qt)
     return acc
 
@@ -84,7 +87,8 @@ def _mod_down_tables(q_moduli: tuple, p_moduli: tuple, t: int, device: str):
 
 def approx_mod_down(x_q: torch.Tensor, x_p: torch.Tensor, q_moduli, p_moduli,
                     t: int = 1) -> torch.Tensor:
-    """Scale x over Q*P (its Q part [L, n] and P part [K, n], COEFF) by 1/P:
+    """Scale x over Q*P (its Q part [..., L, n] and P part [..., K, n],
+    COEFF) by 1/P:
     out_i = (x_i - V_i) * P^{-1} mod q_i with V = x mod P; for t > 1 the lift
     is V = t * conv(t^{-1} * x_p), so it is also 0 mod t."""
     q_moduli, p_moduli = tuple(q_moduli), tuple(p_moduli)
@@ -110,27 +114,30 @@ def _drop_scale_tables(moduli: tuple, device: str):
 def _drop_last(x: torch.Tensor, x_last_coeff: torch.Tensor, moduli: tuple,
                to_eval: bool) -> torch.Tensor:
     """[q_last^{-1} * (x_i - centered(x_last))]_{q_i} for i < last, with the
-    last tower's COEFF residues lifted into each remaining tower."""
+    last tower's COEFF residues [..., 1, n] lifted into each remaining
+    tower."""
     inv, inv_pre = _drop_scale_tables(moduli, _dev(x.device))
     new_mod = make_mod_consts(moduli[:-1], x.device)
     old_mod = make_mod_consts(moduli[-1:], x.device)
-    s = switch_modulus(x_last_coeff, old_mod, new_mod)     # [L-1, n]
+    s = switch_modulus(x_last_coeff, old_mod, new_mod)     # [..., L-1, n]
     if to_eval:
         s = ntt.forward(s, moduli[:-1])
-    diff = sub_mod(x[:-1], s, new_mod.q)
+    diff = sub_mod(x[..., :-1, :], s, new_mod.q)
     return mul_mod_shoup(diff, inv, inv_pre, new_mod.q)
 
 
 def rescale_eval(x: torch.Tensor, moduli) -> torch.Tensor:
-    """Divide-and-round by the last modulus of an EVAL stack [L, n]: only the
-    last tower goes to the coefficient domain (one single-tower inverse NTT
-    and one forward over the L-1 others)."""
+    """Divide-and-round by the last modulus of an EVAL stack [..., L, n]
+    (leading dims: a batch of polynomials over one basis): only the last
+    tower goes to the coefficient domain (one single-tower inverse NTT and
+    one forward over the L-1 others, each over the whole batch)."""
     moduli = tuple(moduli)
-    last = ntt.inverse(x[-1:], moduli[-1:])
+    last = ntt.inverse(x[..., -1:, :], moduli[-1:])
     return _drop_last(x, last, moduli, True)
 
 
 def drop_last_and_scale(x: torch.Tensor, moduli) -> torch.Tensor:
-    """Exact divide-and-round by the last modulus of a COEFF stack [L, n]."""
+    """Exact divide-and-round by the last modulus of a COEFF stack
+    [..., L, n]."""
     moduli = tuple(moduli)
-    return _drop_last(x, x[-1:], moduli, False)
+    return _drop_last(x, x[..., -1:, :], moduli, False)

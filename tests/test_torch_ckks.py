@@ -34,7 +34,9 @@ SEED = 5
 
 def _drive(mod, params):
     rng = np.random.default_rng(SEED)
-    ctx = mod.gen_context(mod.CKKSParams(**params))
+    # the port runs on the card unless asked for the CPU; JAX is on the CPU
+    where = ("cpu",) if mod is ckks else ()
+    ctx = mod.gen_context(mod.CKKSParams(**params), *where)
     pk, sk = mod.keygen(ctx, rng)
     evk = mod.relin_keygen(ctx, sk, rng)
     rk = mod.rot_keygen(ctx, sk, [1], rng)[1]
@@ -61,7 +63,7 @@ def runs(request):
 
 def _same_poly(jp, tp):
     return (jp.basis.moduli == tp.basis.moduli and jp.fmt.value ==
-            tp.fmt.value and torch.equal(convert.poly_from_jax(jp).data,
+            tp.fmt.value and torch.equal(convert.poly_from_jax(jp, "cpu").data,
                                          tp.data))
 
 
@@ -71,7 +73,7 @@ def _same_ct(jct, tct):
 
 
 def _same_key(jk, tk):
-    k = convert.kskey_from_jax(jk)
+    k = convert.kskey_from_jax(jk, "cpu")
     return (k.params == tk.params and torch.equal(k.b, tk.b)
             and torch.equal(k.a, tk.a))
 
@@ -192,7 +194,7 @@ def test_approx_switch_basis(runs):
     x = _uniform(src, (), p.n, seed=13)
     want = jrns.approx_switch_basis(limb.from_int_array(x), src, dst)
     got = rns.approx_switch_basis(torch.from_numpy(x), src, dst)
-    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi))
+    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi, "cpu"))
 
 
 @pytest.mark.parametrize("t", [1, 65537])
@@ -207,7 +209,7 @@ def test_approx_mod_down(runs, t):
                                 p.p_moduli, t)
     got = rns.approx_mod_down(torch.from_numpy(xq), torch.from_numpy(xp),
                               p.q_moduli, p.p_moduli, t)
-    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi))
+    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi, "cpu"))
 
 
 def test_rescale_eval(runs):
@@ -216,7 +218,7 @@ def test_rescale_eval(runs):
     x = _uniform(moduli, (), j["ctx"].n, seed=16)
     want = jckks._rescale_fn(moduli)(limb.from_int_array(x))
     got = rns.rescale_eval(torch.from_numpy(x), moduli)
-    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi))
+    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi, "cpu"))
 
 
 def test_drop_last_and_scale(runs):
@@ -226,7 +228,7 @@ def test_drop_last_and_scale(runs):
     x = _uniform(moduli, (), j["ctx"].n, seed=18)
     want = jrns.drop_last_and_scale(limb.from_int_array(x), moduli)
     got = rns.drop_last_and_scale(torch.from_numpy(x), moduli)
-    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi))
+    assert torch.equal(got, convert.u64_to_tensor(want.lo, want.hi, "cpu"))
 
 
 def test_keyswitch_apply(runs):
@@ -235,7 +237,7 @@ def test_keyswitch_apply(runs):
     basis = j["ctx"].basis()
     x = _uniform(basis.moduli, (), basis.n, seed=17)
     want = jks.apply(j["evk"], _jpoly(x, basis, jdcrt.Format.EVAL))
-    got = keyswitch.apply(convert.kskey_from_jax(j["evk"]),
+    got = keyswitch.apply(convert.kskey_from_jax(j["evk"], "cpu"),
                           _tpoly(x, basis, jdcrt.Format.EVAL))
     assert _same_poly(want[0], got[0])
     assert _same_poly(want[1], got[1])
@@ -260,6 +262,7 @@ def test_state_round_trips_through_numpy(runs):
     slots = jckks.decrypt(j["ctx"], j["sk"], jct,
                           num_slots=j["ctx"].n // 2)
     assert np.array_equal(slots, t["slots"])
-    back = convert.ciphertext_from_jax(jct)
+    back = convert.ciphertext_from_jax(jct, "cpu")
     assert _same_ct(jct, back)
-    assert convert.public_key_from_jax(j["pk"]).b.basis == t["pk"].b.basis
+    pk = convert.public_key_from_jax(j["pk"], "cpu")
+    assert pk.b.basis == t["pk"].b.basis

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from openfhe_tpu.utils import nbtheory
 from openfhe_tpu_torch.ops import elementwise, modular, ntt
+from openfhe_tpu_torch.utils import nbtheory
 
 pytestmark = pytest.mark.cuda
 
@@ -28,11 +28,18 @@ def _uniform(moduli, shape, seed):
     return torch.from_numpy(np.stack(cols, axis=-2).astype(np.int64))
 
 
-@pytest.mark.parametrize("n", [2, 16, 512, 2048, 8192])
+# n = 2^12 .. 2^17 take the templated radix-16 kernels (sub-transforms of
+# 64, 128, 256 and 512 points), every other n the generic radix-2 ones
+NTT_SHAPES = [(n, (2,)) for n in (2, 16, 512, 2048, 4096, 8192, 16384, 32768,
+                                   1 << 17)] + \
+    [(n, lead) for n in (2048, 4096, 32768) for lead in ((1,), (3,), ())]
+
+
+@pytest.mark.parametrize("n,lead", NTT_SHAPES)
 @pytest.mark.parametrize("bits", [30, 61])
-def test_ntt_kernel_matches_twin(cuda, n, bits):
+def test_ntt_kernel_matches_twin(cuda, n, bits, lead):
     moduli = tuple(nbtheory.generate_prime_chain(3, bits, n))
-    x = _uniform(moduli, (2, n), seed=n + bits)           # [2, 3, n]
+    x = _uniform(moduli, lead + (n,), seed=n + bits)      # [lead, 3, n]
     t_cpu = ntt.tables(n, moduli, "cpu")
     want = ntt.forward_plain(x, t_cpu)
     got = ntt.forward(x.to(cuda), moduli)

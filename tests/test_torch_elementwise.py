@@ -25,7 +25,7 @@ def _uniform(moduli, lead, n, seed):
 
 
 def _from_jax(u):
-    return convert.u64_to_tensor(u.lo, u.hi)
+    return convert.u64_to_tensor(u.lo, u.hi, "cpu")
 
 
 def test_fused_mac_mod_matches_pallas():
@@ -35,7 +35,7 @@ def test_fused_mac_mod_matches_pallas():
                    limb.from_int_array(acc), jmod.make_mod_consts(moduli))
     got = elementwise.fused_mac_mod(
         torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(acc),
-        modular.make_mod_consts(moduli))
+        modular.make_mod_consts(moduli, "cpu"))
     assert torch.equal(got, _from_jax(want))
 
 
@@ -66,7 +66,7 @@ def test_ks_inner_product_matches_jax_loop(bits, rows):
 
     got0, got1 = elementwise.ks_inner_product(
         torch.from_numpy(digits), torch.from_numpy(kb), torch.from_numpy(ka),
-        rows, modular.make_mod_consts(act))
+        rows, modular.make_mod_consts(act, "cpu"))
     assert torch.equal(got0, _from_jax(acc0))
     assert torch.equal(got1, _from_jax(acc1))
 
@@ -74,7 +74,7 @@ def test_ks_inner_product_matches_jax_loop(bits, rows):
 def test_shape_checks():
     n, moduli = 64, tuple(nbtheory.generate_prime_chain(3, 30, 64))
     x = torch.from_numpy(_uniform(moduli, (), n, seed=7))
-    mod = modular.make_mod_consts(moduli)
+    mod = modular.make_mod_consts(moduli, "cpu")
     with pytest.raises(ValueError):
         elementwise.fused_mac_mod(x, x[:2], x, mod)
     with pytest.raises(ValueError):

@@ -78,17 +78,18 @@ def jax_out(case):
         }
 
     out = run(_u64(a), _u64(b), _u64(w))
-    return {k: convert.u64_to_tensor(v.lo, v.hi) for k, v in out.items()}
+    return {k: convert.u64_to_tensor(v.lo, v.hi, "cpu")
+            for k, v in out.items()}
 
 
 def _port(name, case):
     a, b, w, c = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
                   for x in case)
-    m = modular.make_mod_consts(MODULI)
-    m_new = modular.make_mod_consts(MODULI[1:] + MODULI[:1])
-    cc = modular.int_tensor([[v] for v in c])
+    m = modular.make_mod_consts(MODULI, "cpu")
+    m_new = modular.make_mod_consts(MODULI[1:] + MODULI[:1], "cpu")
+    cc = modular.int_tensor([[v] for v in c], "cpu")
     cp = modular.int_tensor([[modular.shoup_precon_int(v, q)]
-                             for v, q in zip(c, MODULI)])
+                             for v, q in zip(c, MODULI)], "cpu")
     ops = {
         "add_mod": lambda: modular.add_mod(a, b, m.q),
         "sub_mod": lambda: modular.sub_mod(a, b, m.q),
@@ -129,10 +130,10 @@ def test_precon_bit_patterns(q):
     """Shoup precons reach above 2^63; tables keep their bit pattern."""
     pre = modular.shoup_precon_int(q - 1, q)
     assert pre >= 1 << 63
-    t = modular.int_tensor([pre])
+    t = modular.int_tensor([pre], "cpu")
     assert int(t.numpy().view(np.uint64)[0]) == pre
 
 
 def test_rejects_moduli_above_2_62():
     with pytest.raises(ValueError):
-        modular.make_mod_consts([(1 << 62) + 1])
+        modular.make_mod_consts([(1 << 62) + 1], "cpu")

@@ -5,7 +5,11 @@ Pallas four-step kernels in interpret mode, and the kernels' tables.
 On the CPU ``ntt.forward``/``inverse`` run the kernels' plain twin, which
 follows the kernels' own decomposition (column stages, twist, row stages),
 so these tests check the kernels' tables, stage geometry and output order;
-``tests/test_torch_cuda.py`` checks the CUDA indexing on the card.
+``tests/test_torch_cuda.py`` checks the CUDA indexing on the card. The
+schedule of the main-path kernel (radix-16 rounds on register fields, lazy
+butterflies) is replayed here in Python ints against the twin's stages, and
+the batched call sites that feed the kernel (one mod-down for both key-switch
+outputs, one rescale for all polynomials) against their per-polynomial form.
 """
 
 import numpy as np
@@ -17,8 +21,9 @@ from openfhe_tpu.ops import ntt as jntt
 from openfhe_tpu.ops import ntt_pallas
 from openfhe_tpu.parallel import dntt
 from openfhe_tpu.utils import nbtheory
-from openfhe_tpu_torch import convert
-from openfhe_tpu_torch.ops import ntt
+from openfhe_tpu_torch import convert, dcrt, keyswitch
+from openfhe_tpu_torch.models import ckks
+from openfhe_tpu_torch.ops import elementwise, ntt, rns
 
 
 def _uniform(moduli, lead, n, seed):
@@ -34,7 +39,7 @@ def _to_jax(x):
 
 
 def _from_jax(u):
-    return convert.u64_to_tensor(u.lo, u.hi)
+    return convert.u64_to_tensor(u.lo, u.hi, "cpu")
 
 
 @pytest.mark.parametrize("n", [16, 256, 2048])
@@ -122,3 +127,117 @@ def test_rejects_bad_inputs(monkeypatch):
     monkeypatch.setenv("OPENFHE_TPU_TORCH_CHECK", "1")
     with pytest.raises(ValueError):
         ntt.forward(bad, moduli)
+
+
+def _radix16_rounds(x, tab, q, log_r, fwd):
+    """One size-2^log_r transform by the schedule of ``csrc/ntt.cu``'s main
+    path, in Python ints: round K runs the stages on index bits BLO..BHI in a
+    thread that holds the 16 elements whose bits P..P+3 vary; the butterfly on
+    bit b of element i reads twiddle (R + i) >> (b + 1); butterflies are lazy
+    (``modarith.cuh``), with the value ranges asserted at every step."""
+    R, M = 1 << log_r, (1 << 64) - 1
+    w, wp = ([int(v) for v in tab[k].view(np.uint64)]
+             for k in ((0, 1) if fwd else (2, 3)))
+    bound = 4 * q if fwd else 2 * q
+
+    def shoup_lazy(y, j):
+        r = (y * w[j] - ((y * wp[j]) >> 64) * q) & M
+        assert r < 2 * q
+        return r
+
+    v = [int(a) for a in x]
+    for K in range((log_r + 3) // 4):
+        if fwd:
+            bhi = log_r - 1 - 4 * K
+            blo = max(bhi - 3, 0)
+            P, bits = blo, range(bhi, blo - 1, -1)
+        else:
+            blo, bhi = 4 * K, min(4 * K + 3, log_r - 1)
+            P, bits = bhi - 3, range(blo, bhi + 1)
+        assert P >= 0
+        seen = set()
+        for u in range(R // 16):
+            ibase = ((u >> P) << (P + 4)) | (u & ((1 << P) - 1))
+            idx = [ibase | (f << P) for f in range(16)]
+            seen.update(idx)
+            loc = [v[i] for i in idx]
+            for beta in bits:
+                lam = beta - P
+                t = (R + ibase) >> (beta + 1)
+                for g in range(8 >> lam):
+                    for k in range(1 << lam):
+                        f = (g << (lam + 1)) | k
+                        a, b = loc[f], loc[f | (1 << lam)]
+                        assert a < bound and b < bound
+                        if fwd:
+                            a = a - 2 * q if a >= 2 * q else a
+                            m = shoup_lazy(b, t + g)
+                            a, b = a + m, a - m + 2 * q
+                        else:
+                            s, d = a + b, a - b + 2 * q
+                            a = s - 2 * q if s >= 2 * q else s
+                            b = shoup_lazy(d, t + g)
+                        assert a < bound and b < bound
+                        loc[f], loc[f | (1 << lam)] = a, b
+            for i, a in zip(idx, loc):
+                v[i] = a
+        assert seen == set(range(R))       # every element in exactly one thread
+    return [a % q for a in v]
+
+
+@pytest.mark.parametrize("log_r", [6, 7, 8, 9])
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("bits", [30, 61])
+def test_radix16_schedule_matches_twin_stages(log_r, fwd, bits):
+    R = 1 << log_r
+    q = nbtheory.generate_prime_chain(1, bits, R)[0]
+    x = _uniform((q,), (), R, seed=log_r + bits)[0]
+    x[:4] = [q - 1, 0, q - 1, 1]
+    tab = ntt.stage_tables(R, q)
+    t = torch.from_numpy(tab)[:, None]                        # [4, L=1, R]
+    k = 0 if fwd else 2
+    want = ntt._stages(torch.from_numpy(x).reshape(1, R, 1), t[k], t[k + 1],
+                       torch.tensor([q]), fwd, 0)
+    got = _radix16_rounds(x, tab, q, log_r, fwd)
+    assert got == want.reshape(R).tolist()
+
+
+@pytest.mark.parametrize("composite", [1, 2], ids=["60bit", "composite"])
+def test_batched_call_sites_match_per_polynomial_form(composite):
+    """n = 256: the key switch's mod-down over both outputs at once and the
+    rescale over the stacked polynomials give the residues of the
+    per-polynomial form."""
+    params = ckks.CKKSParams(ring_dim=256, mult_depth=3, scaling_mod_size=59,
+                             first_mod_size=60, dnum=3,
+                             composite_degree=composite)
+    ctx = ckks.gen_context(params, "cpu")
+    rng = np.random.default_rng(21)
+    pk, sk = ckks.keygen(ctx, rng)
+    evk = ckks.relin_keygen(ctx, sk, rng)
+    n, ks = ctx.n, evk.params
+    lvl = len(ctx.q_moduli) - composite                       # one level down
+    q_act, eb = ctx.q_moduli[:lvl], keyswitch.ext_basis(ks, lvl)
+    basis = dcrt.RnsBasis(n, q_act)
+    ndig = ks.num_digits(lvl)
+    digits = torch.from_numpy(_uniform(eb.moduli, (ndig,), n, seed=22))
+    got = keyswitch.hoist_inner_product(evk, digits, basis)
+    Lfull = len(ks.q_moduli)
+    rows = list(range(lvl)) + list(range(Lfull, Lfull + len(ks.p_moduli)))
+    accs = elementwise.ks_inner_product(digits, evk.b, evk.a, rows,
+                                        eb.mod("cpu"))
+    assert accs.shape == (2, lvl + len(ks.p_moduli), n)
+    for half, acc in zip(got, accs):
+        cc = ntt.inverse(acc, eb.moduli)
+        down = rns.approx_mod_down(cc[:lvl], cc[lvl:], q_act, ks.p_moduli)
+        assert torch.equal(half.data, ntt.forward(down, q_act))
+
+    ct = ckks.eval_mult(ckks.encrypt(ctx, pk, rng.uniform(-1, 1, n // 2), rng),
+                        ckks.encrypt(ctx, pk, rng.uniform(-1, 1, n // 2), rng))
+    res = ckks.rescale_ctx(ctx, ct)
+    assert len(res.polys) == 3
+    for p, r in zip(ct.polys, res.polys):
+        data, moduli = p.data, ctx.q_moduli
+        for _ in range(composite):
+            data = rns.rescale_eval(data, moduli)
+            moduli = moduli[:-1]
+        assert r.basis.moduli == moduli and torch.equal(r.data, data)

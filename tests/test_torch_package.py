@@ -1,7 +1,7 @@
 """The port stands apart from JAX: no module of ``openfhe_tpu_torch`` imports
-jax, it imports only the jax-free host modules of ``openfhe_tpu``, the slice
-runs on the CPU without loading jax, and the CUDA-only paths raise instead of
-falling back when they get what they do not take.
+jax or anything of ``openfhe_tpu``, the slice runs on the CPU (when asked to)
+without loading either, and the CUDA-only paths raise instead of falling back
+when they get what they do not take or find no card.
 """
 
 import ast
@@ -10,16 +10,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from openfhe_tpu_torch import _build
-from openfhe_tpu_torch.ops import ntt
+from openfhe_tpu_torch import _build, convert
+from openfhe_tpu_torch.models import ckks
+from openfhe_tpu_torch.ops import modular, ntt, rns
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "openfhe_tpu_torch"
-SHARED = {"openfhe_tpu.utils.nbtheory", "openfhe_tpu.utils.sampling",
-          "openfhe_tpu.utils.security", "openfhe_tpu.encoding"}
 
 
 def _imports(path: Path):
@@ -39,14 +39,11 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_jax_and_only_shared_host_modules(path):
+    """Nothing of jax and nothing of the JAX package, not even a module
+    there that does not import jax (the port keeps its own copies)."""
     for name in _imports(path):
-        assert name.split(".")[0] != "jax", f"{path} imports {name}"
-        if name.split(".")[0] == "openfhe_tpu" and name != "openfhe_tpu":
-            # `from openfhe_tpu.utils import sampling` names the package and
-            # then the module: both forms must land on a shared module
-            assert name in SHARED or any(s.startswith(name + ".")
-                                         for s in SHARED), \
-                f"{path} imports {name}"
+        assert name.split(".")[0] not in ("jax", "openfhe_tpu"), \
+            f"{path} imports {name}"
 
 
 SLICE = """
@@ -56,7 +53,7 @@ import numpy as np
 from openfhe_tpu_torch.models import ckks
 params = ckks.CKKSParams(ring_dim=64, mult_depth=2, scaling_mod_size=50,
                          first_mod_size=60, dnum=2)
-ctx = ckks.gen_context(params)
+ctx = ckks.gen_context(params, "cpu")
 rng = np.random.default_rng(1)
 pk, sk = ckks.keygen(ctx, rng)
 evk = ckks.relin_keygen(ctx, sk, rng)
@@ -67,6 +64,8 @@ ct = ckks.eval_mult_relin(ckks.encrypt(ctx, pk, v1, rng),
 out = ckks.decrypt(ctx, sk, ckks.eval_rotate(ckks.rescale(ct), 1, rk), 32)
 print(float(np.max(np.abs(out.real - np.roll(v1 * v2, -1)))))
 print(before, "jax" in sys.modules)
+print(sorted(m for m in sys.modules
+             if m == "openfhe_tpu" or m.startswith("openfhe_tpu.")))
 """
 
 
@@ -75,11 +74,12 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    err, flags = proc.stdout.strip().splitlines()[-2:]
+    err, flags, jax_package = proc.stdout.strip().splitlines()[-3:]
     assert float(err) < 1e-6
     before, after = flags.split()
     if before == "False":
         assert after == "False", "importing the port loaded jax"
+    assert jax_package == "[]", "the port loaded modules of the JAX package"
 
 
 def test_kernel_paths_refuse_cpu_tensors():
@@ -98,6 +98,24 @@ def test_library_needs_a_card():
         pytest.skip("a card is present: the library loads")
     with pytest.raises(RuntimeError, match="CUDA device"):
         _build.library()
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    """With no device argument the entry points take the current CUDA
+    device; without one they raise and name the remedy, and never fall back
+    to the CPU by themselves."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    params = ckks.CKKSParams(ring_dim=64, mult_depth=1)
+    zeros = np.zeros((1, 4), dtype=np.uint32)
+    for call in (lambda: ckks.gen_context(params),
+                 lambda: convert.u64_to_tensor(zeros, zeros),
+                 lambda: modular.int_tensor([1, 2]),
+                 lambda: modular.make_mod_consts([97]),
+                 lambda: rns.switch_basis_tables((97,), (193,))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert ckks.gen_context(params, "cpu").device == torch.device("cpu")
 
 
 def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
