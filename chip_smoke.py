@@ -19,9 +19,20 @@ every kernel must launch during the bootstrap, more than 3 towers must come
 back and the slots must decrypt within 5e-2; and a dense n = 512 bootstrap
 on the card must equal the CPU run in every key, every stage's ciphertext
 and the decrypted slots. The kernels are held against their twins at the
-bootstrap chain's shapes too. The line before the last is a JSON
-object with each kernel's launches (on the main path and in one
-bootstrap), error against its twin, times (L2-warm
+bootstrap chain's shapes too. Phase 8 runs BGV at n = 2^15 with 128-bit
+classic security (10 towers, 4 special primes, t = 65537): keygen, the
+relinearization key and eval_sum's 15 keys, a 9-level squaring chain with
+mod_reduce down to one tower, rotation, row flip, eval_sum, plaintext
+operands and compress, every decryption equal to the plaintext arithmetic
+mod t. Phase 9 runs BFV at the same width (Q 10 towers, R 11, P 4): an
+8-level HPS squaring chain, one product each by HPSPOVERQ,
+HPSPOVERQLEVELED and BEHZ, rotation, eval_sum, the coefficient and string
+encodings, compress and a BV relinearisation, each exact. Phase 10 holds
+BGV and BFV at n = 2^12 on the card equal to the CPU run in every key,
+every ciphertext and every decryption. The kernels are held against their
+twins at the BGV and BFV shapes too. The line before the last is a JSON
+object with each kernel's launches (on the main path, in one bootstrap, in
+phase 8 and in phase 9), error against its twin, times (L2-warm
 ``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
 least time the card could take for the call; the last line is the JSON
 device summary. There is no CPU path:
@@ -60,6 +71,25 @@ BOOT_BOUND = 5e-2  # e2e_scale.py:147
 # test's depth 14 leaves none for SlotsToCoeffs; 18 regains 4 towers
 SMALL_BOOT_PARAMS = dict(ring_dim=512, mult_depth=18, scaling_mod_size=35,
                          first_mod_size=50, dnum=3, secret_hw=64)
+
+# Phases 8 and 9: BGV and BFV at n = 2^15, 128-bit classic security (log QP
+# = 840 <= 880), t = 65537 (the library's default)
+FHE_RING_DIM = 1 << 15
+BGV_PARAMS = dict(ring_dim=FHE_RING_DIM, mult_depth=9,
+                  plaintext_modulus=65537, mod_size=60, dnum=3,
+                  security_level="HEStd_128_classic")
+BFV_PARAMS = dict(ring_dim=FHE_RING_DIM, plaintext_modulus=65537,
+                  num_towers=10, mod_size=60, dnum=3,
+                  security_level="HEStd_128_classic")
+BFV_LEVELS = 8
+BV_LOG_BASE = 20
+# Phase 10: both schemes at n = 2^12 (3 towers), card against CPU
+SMALL_BGV_PARAMS = dict(ring_dim=1 << 12, mult_depth=2,
+                        plaintext_modulus=65537, mod_size=60, dnum=3)
+SMALL_BFV_PARAMS = dict(ring_dim=1 << 12, plaintext_modulus=65537,
+                        num_towers=3, mod_size=60, dnum=3)
+BFV_TEXT = "openfhe_tpu_torch: BFV on the H100"
+BFV_COEFS = [7, -3, 0, 32768, -32768, 1, -2]
 
 _NTT_PALLAS = "openfhe_tpu/ops/ntt_pallas.py"
 _MAC_PALLAS = "openfhe_tpu/ops/elementwise_pallas.py:54"
@@ -191,19 +221,23 @@ def uniform(moduli, shape, rng, device):
     return torch.from_numpy(arr).to(device)
 
 
-def check_kernels(ctx60, ctx30, ctx_boot, device):
+def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
     """Phase 2: each kernel against its twin at the main path's shapes, at
-    the bootstrap chain's (45- and 55-bit towers, 60-bit special primes)
-    and at one ring dimension that takes the NTT's generic path. Each
-    kernel's summary entry is its main-path keyswitch shape's and lists
-    every shape under ``shapes``."""
+    the bootstrap chain's (45- and 55-bit towers, 60-bit special primes),
+    at BGV's and BFV's (n = 2^15: the BFV S = Q∪R basis, BGV's Q∪P with
+    primes ≡ 1 mod 2nt, a BV chunk of 15 digits) and at one ring dimension
+    that takes the NTT's generic path. Each kernel's summary entry is its
+    CKKS main-path keyswitch shape's and lists every shape under
+    ``shapes``."""
     from openfhe_tpu_torch.ops import elementwise, modular, ntt
 
     rng = np.random.default_rng(3)
-    n = RING_DIM
+    n, nf = RING_DIM, FHE_RING_DIM
     qp = ctx60.q_moduli + ctx60.p_moduli
     bq = ctx_boot.q_moduli
     bqp = bq + ctx_boot.p_moduli
+    s_basis = ctx_bfv.q_moduli + ctx_bfv.r_moduli
+    bgv_qp = ctx_bgv.q_moduli + ctx_bgv.p_moduli
     cases = [("[8, 65536] 60-bit", ctx60.q_moduli, (), n),
              ("[16, 65536] 30-bit", ctx30.q_moduli, (), n),
              ("[1, 65536] 60-bit", ctx60.q_moduli[-1:], (), n),
@@ -211,6 +245,9 @@ def check_kernels(ctx60, ctx30, ctx_boot, device):
              ("[3, 8, 2048] 60-bit generic path", ctx60.q_moduli, (3,), 2048),
              ("[1, 65536] 55-bit bootstrap q0", bq[:1], (), n),
              (f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP", bqp, (3,), n),
+             (f"[{len(s_basis)}, {nf}] 60-bit BFV S", s_basis, (), nf),
+             (f"[4, {len(s_basis)}, {nf}] 60-bit BFV S", s_basis, (4,), nf),
+             (f"[3, {len(bgv_qp)}, {nf}] 60-bit BGV QP", bgv_qp, (3,), nf),
              ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
     shapes = {name: [] for name in SOURCES}
     for label, moduli, lead, dim in cases:
@@ -228,28 +265,36 @@ def check_kernels(ctx60, ctx30, ctx_boot, device):
         shapes["ntt_forward"].append(fwd)
         shapes["ntt_inverse"].append(inv)
 
-    for label, moduli in ((f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP",
-                           bqp), ("[3, 11, 65536] 60-bit QP", qp)):
+    bfv_q = ctx_bfv.q_moduli
+    for label, moduli, ndig, dim in (
+            (f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP", bqp, 3, n),
+            (f"[3, {len(bgv_qp)}, {nf}] 60-bit BGV QP", bgv_qp, 3, nf),
+            (f"[15, {len(bfv_q)}, {nf}] 60-bit BV chunk of 15 digits", bfv_q,
+             15, nf),
+            ("[3, 11, 65536] 60-bit QP", qp, 3, n)):
         mod = modular.make_mod_consts(moduli, device)
-        digits = uniform(moduli, (3, n), rng, device)
-        kb = uniform(moduli, (3, n), rng, device)
-        ka = uniform(moduli, (3, n), rng, device)
+        digits = uniform(moduli, (ndig, dim), rng, device)
+        kb = uniform(moduli, (ndig, dim), rng, device)
+        ka = uniform(moduli, (ndig, dim), rng, device)
         rows = list(range(len(moduli)))
         rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
         shapes["ks_inner_product"].append(compare(
             f"ks_inner_product {label}",
             lambda: elementwise.ks_inner_product(digits, kb, ka, rows, mod),
             lambda: elementwise.ks_inner_product_plain(
-                digits, kb, ka, rows_t, mod), ks_bound(3, len(moduli), n)))
-    for label, moduli in ((f"[{len(bq)}, 65536] 45/55-bit bootstrap Q", bq),
-                          ("[11, 65536] 60-bit QP", qp)):
+                digits, kb, ka, rows_t, mod), ks_bound(ndig, len(moduli),
+                                                       dim)))
+    for label, moduli, dim in (
+            (f"[{len(bq)}, 65536] 45/55-bit bootstrap Q", bq, n),
+            (f"[{len(s_basis)}, {nf}] 60-bit BFV S (tensor)", s_basis, nf),
+            ("[11, 65536] 60-bit QP", qp, n)):
         mod = modular.make_mod_consts(moduli, device)
-        x, y, acc = (uniform(moduli, (n,), rng, device) for _ in range(3))
+        x, y, acc = (uniform(moduli, (dim,), rng, device) for _ in range(3))
         shapes["fused_mac_mod"].append(compare(
             f"fused_mac_mod {label}",
             lambda: elementwise.fused_mac_mod(x, y, acc, mod),
             lambda: elementwise.fused_mac_plain(x, y, acc, mod),
-            fused_mac_bound(len(moduli), n)))
+            fused_mac_bound(len(moduli), dim)))
     return {name: {**per_shape[-1], "shapes": per_shape}
             for name, per_shape in shapes.items()}
 
@@ -446,11 +491,237 @@ def bootstrap_against_cpu(ckks, boot):
         f"{t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
 
 
+def stage_clock(times):
+    """timed(name, fn) as ``stage_timer``'s, but every call's seconds are
+    kept, in order, in the list ``times[name]``."""
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    return timed
+
+
+def untimed(name, fn):
+    return fn()
+
+
+def poly_states(*cts):
+    return [p.data.cpu() for ct in cts for p in ct.polys]
+
+
+def key_states(*keys):
+    return [t.cpu() for k in keys for t in (k.b, k.a)]
+
+
+def exact(label, got, want):
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: decryption differs from the "
+                             f"plaintext arithmetic")
+
+
+def rows_of(x, n):
+    h = n // 2
+    return x[:h], x[h:]
+
+
+def bgv_run(bgv, ctx, seed, timed):
+    """BGV through every entry point of the slice: keys, a squaring chain
+    with mod_reduce down to one tower, rotation, row flip, eval_sum,
+    plaintext operands and compress, each decryption held to the plaintext
+    arithmetic mod t. Returns (every key and ciphertext, every decryption)."""
+    n, t = ctx.n, ctx.t
+    rng = np.random.default_rng(seed)
+    pk, sk = timed("keygen", lambda: bgv.keygen(ctx, rng))
+    evk = timed("relin_keygen", lambda: bgv.relin_keygen(ctx, sk, rng))
+    gal = bgv.sum_galois_indices(n)
+    rks = timed("rot_keygen", lambda: bgv.rot_keygen(ctx, sk, gal, rng))
+    v1 = rng.integers(0, t, size=n)
+    v2 = rng.integers(0, t, size=n)
+    ct1 = timed("encrypt", lambda: bgv.encrypt(ctx, pk, v1.tolist(), rng))
+    ct2 = timed("encrypt", lambda: bgv.encrypt(ctx, pk, v2.tolist(), rng))
+    states = [pk.b.data.cpu(), pk.a.data.cpu()] + key_states(
+        evk, *[rks[k] for k in gal]) + poly_states(ct1, ct2)
+    outs = {}
+
+    def check(name, ct, want):
+        states.extend(poly_states(ct))
+        outs[name] = timed("decrypt", lambda: bgv.decrypt(ctx, sk, ct))
+        exact(f"BGV {name}", outs[name], want.tolist())
+
+    ct, x = ct1, v1
+    for level in range(len(ctx.q_moduli) - 1):
+        ct = timed("mult_relin", lambda: bgv.eval_mult_relin(ct, ct, evk))
+        ct = timed("mod_reduce", lambda: bgv.mod_reduce(ctx, ct))
+        x = x * x % t
+        check(f"square^{level + 1} ({ct.towers} towers)", ct, x)
+    a, b = rows_of(v1, n)
+    check("rotate 1", timed("rotate", lambda: bgv.eval_rotate(
+        ct1, 1, rks[gal[0]])), np.concatenate([np.roll(a, -1),
+                                               np.roll(b, -1)]))
+    check("flip rows", timed("flip_rows", lambda: bgv.eval_flip_rows(
+        ct1, rks[2 * n - 1])), np.concatenate([b, a]))
+    check("eval_sum", timed("eval_sum", lambda: bgv.eval_sum(ct1, rks)),
+          np.full(n, v1.sum() % t))
+    check("add", bgv.eval_add(ct1, ct2), (v1 + v2) % t)
+    check("add_plain", bgv.eval_add_plain(ctx, ct1, v2.tolist()),
+          (v1 + v2) % t)
+    check("mult_plain", bgv.eval_mult_plain(ctx, ct1, v2.tolist()),
+          v1 * v2 % t)
+    small = timed("compress", lambda: bgv.compress(ctx, ct1))
+    if small.towers != 1:
+        raise AssertionError("BGV compress left more than one tower")
+    check("compress", small, v1)
+    return states, outs
+
+
+def bfv_run(bfv, keyswitch, ctx, seed, levels, timed):
+    """BFV through every entry point of the slice: an HPS squaring chain,
+    one product each by HPSPOVERQ, HPSPOVERQLEVELED and BEHZ, rotation,
+    eval_sum, the coefficient and string encodings, compress and a BV
+    relinearisation, each exact. Returns (keys and ciphertexts,
+    decryptions)."""
+    n, t = ctx.n, ctx.t
+    rng = np.random.default_rng(seed)
+    pk, sk = timed("keygen", lambda: bfv.keygen(ctx, rng))
+    evk = timed("relin_keygen", lambda: bfv.relin_keygen(ctx, sk, rng))
+    gal = bfv.sum_galois_indices(n)
+    rks = timed("rot_keygen", lambda: bfv.rot_keygen(ctx, sk, gal, rng))
+    v1 = rng.integers(0, t, size=n)
+    v2 = rng.integers(0, t, size=n)
+    ct1 = timed("encrypt", lambda: bfv.encrypt(ctx, pk, v1.tolist(), rng))
+    ct2 = timed("encrypt", lambda: bfv.encrypt(ctx, pk, v2.tolist(), rng))
+    states = [pk.b.data.cpu(), pk.a.data.cpu()] + key_states(
+        evk, *[rks[k] for k in gal]) + poly_states(ct1, ct2)
+    outs = {}
+
+    def check(name, ct, want, decrypt=bfv.decrypt):
+        states.extend(poly_states(ct))
+        outs[name] = timed("decrypt", lambda: decrypt(ctx, sk, ct))
+        exact(f"BFV {name}", [outs[name]] if isinstance(want, str)
+              else outs[name], [want] if isinstance(want, str)
+              else list(want))
+
+    ct, x = ct1, v1
+    chain = [(ct1, v1)]
+    for level in range(levels):
+        ct = timed("mult_hps", lambda: bfv.eval_mult(ctx, ct, ct))
+        ct = timed("relinearize", lambda: bfv.relinearize(ct, evk))
+        x = x * x % t
+        check(f"HPS square^{level + 1}", ct, x.tolist())
+        chain.append((ct, x))
+    prod = v1 * v2 % t
+    # the leveled variant squares the chain's third square (noise degree
+    # 4), where the noise estimate lets it drop a tower at n = 2^15
+    deep, x_deep = chain[min(3, levels)]
+    drop = bfv.find_levels_to_drop(ctx, deep.noise_deg - 1)
+    log(f"  HPSPOVERQLEVELED at noise degree {deep.noise_deg}: {drop} "
+        f"tower(s) dropped")
+    for name, mult, want in (
+            ("HPSPOVERQ", lambda: bfv.eval_mult_povq(ctx, ct1, ct2), prod),
+            ("HPSPOVERQLEVELED", lambda: bfv.eval_mult_povq(
+                ctx, deep, deep, leveled=True), x_deep * x_deep % t),
+            ("BEHZ", lambda: bfv.eval_mult_behz(ctx, ct1, ct2), prod)):
+        m = timed(f"mult_{name}", mult)
+        check(name, bfv.relinearize(m, evk), want.tolist())
+    a, b = rows_of(v1, n)
+    check("rotate 1", timed("rotate", lambda: bfv.eval_rotate(
+        ct1, 1, rks[gal[0]])), np.concatenate([np.roll(a, -1),
+                                               np.roll(b, -1)]).tolist())
+    check("eval_sum", timed("eval_sum", lambda: bfv.eval_sum(ct1, rks)),
+          [int(v1.sum() % t)] * n)
+    check("coefficients", bfv.encrypt_poly(ctx, pk, bfv.encode_coef(
+        ctx, BFV_COEFS), rng), BFV_COEFS,
+        lambda c, s, ct: bfv.decrypt_coef(c, s, ct, len(BFV_COEFS)))
+    check("string", bfv.encrypt_poly(ctx, pk, bfv.encode_string(
+        ctx, BFV_TEXT), rng), BFV_TEXT, bfv.decrypt_string)
+    small = timed("compress", lambda: bfv.compress(ctx, ct1))
+    if small.basis.L != 1:
+        raise AssertionError("BFV compress left more than one tower")
+    check("compress", small, v1.tolist())
+    # BV relinearisation of the HPS product
+    bvp = keyswitch.BVKSParams(n, ctx.q_moduli, BV_LOG_BASE)
+    s = sk.poly(ctx.basis(), ctx.device)
+    bv_key = timed("bv_keygen", lambda: keyswitch.bv_keygen(
+        bvp, s, bfv.dcrt.mul(s, s), rng))
+    states.extend(key_states(bv_key))
+    m = bfv.eval_mult(ctx, ct1, ct2)
+    d0, d1 = timed("bv_apply", lambda: keyswitch.bv_apply(bv_key,
+                                                          m.polys[2]))
+    check("BV relinearised", bfv.Ciphertext(
+        (bfv.dcrt.add(m.polys[0], d0), bfv.dcrt.add(m.polys[1], d1)),
+        noise_deg=m.noise_deg), prod.tolist())
+    return states, outs
+
+
+def log_stages(times):
+    log("  stage seconds (calls: first, median): " + ", ".join(
+        f"{k} x{len(v)}: {v[0]:.4f}, {float(np.median(v)):.4f}"
+        for k, v in times.items()))
+
+
+def host_codec_times(ctx, rng):
+    """Host seconds of one packed encode, one decode and one centered CRT
+    interpolation over all Q towers (BGV's decrypt) at the context's size."""
+    from openfhe_tpu_torch import encoding
+    from openfhe_tpu_torch.models import ckks
+    n, t = ctx.n, ctx.t
+    vals = rng.integers(0, t, size=n).tolist()
+    t0 = time.perf_counter()
+    coeffs = encoding.packed_encode(vals, n, t)
+    t1 = time.perf_counter()
+    if encoding.packed_decode(coeffs, n, t) != vals:
+        raise AssertionError("packed encode/decode does not round-trip")
+    t2 = time.perf_counter()
+    rows = np.stack([rng.integers(0, q, size=n, dtype=np.uint64)
+                     for q in ctx.q_moduli]).astype(np.int64)
+    t3 = time.perf_counter()
+    ckks.crt_interpolate_centered(rows, ctx.q_moduli)
+    return t1 - t0, t2 - t1, time.perf_counter() - t3
+
+
+def fhe_at_scale(label, run, ctx):
+    """Phases 8 and 9: one scheme at n = 2^15 on the card, every kernel
+    counted; returns the launches."""
+    times = {}
+    reset_counters()
+    run(ctx, stage_clock(times))
+    launches = read_counters()
+    enc, dec, crt = host_codec_times(ctx, np.random.default_rng(1))
+    log(f"  {label} n={ctx.n}: towers {len(ctx.q_moduli)}+"
+        f"{len(ctx.p_moduli)}, every decryption exact")
+    log_stages(times)
+    log(f"  host: packed encode {enc:.4f} s, decode {dec:.4f} s, centered "
+        f"CRT over {len(ctx.q_moduli)} towers {crt:.4f} s")
+    log(f"  launches: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    return launches
+
+
+def fhe_against_cpu(label, run, make_ctx):
+    """Phase 10: the scheme at n = 2^12 on the card equals the CPU run."""
+    gpu, gpu_out = run(make_ctx(torch.device("cuda", 0)), untimed)
+    cpu, cpu_out = run(make_ctx(torch.device("cpu")), untimed)
+    if len(gpu) != len(cpu) or not all(torch.equal(g, c)
+                                       for g, c in zip(gpu, cpu)):
+        raise AssertionError(f"{label} on the card differs from the CPU")
+    if gpu_out != cpu_out:
+        raise AssertionError(f"{label}: decryptions differ from the CPU's")
+    log(f"  {label} n=4096: {len(gpu)} keys and ciphertext polys torch.equal "
+        f"to the CPU run; {len(gpu_out)} decryptions equal")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
-    from openfhe_tpu_torch import _build
-    from openfhe_tpu_torch.models import ckks
+    from openfhe_tpu_torch import _build, keyswitch
+    from openfhe_tpu_torch.models import bfv, bgv, ckks
     from openfhe_tpu_torch.models import ckks_bootstrap as boot
 
     device = torch.device("cuda", 0)
@@ -473,9 +744,11 @@ def main():
     ctx60 = ckks.gen_context(params60, device)
     ctx30 = ckks.gen_context(params30, device)
     ctx_boot = ckks.gen_context(ckks.CKKSParams(**BOOT_PARAMS), device)
+    ctx_bgv = bgv.gen_context(bgv.BGVParams(**BGV_PARAMS), device)
+    ctx_bfv = bfv.gen_context(bfv.BFVParams(**BFV_PARAMS), device)
 
     log("[2] kernels against their twins")
-    checks = check_kernels(ctx60, ctx30, ctx_boot, device)
+    checks = check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device)
 
     log("[3] main path, 60-bit chain")
     launches = main_path(ckks, ctx60, "60-bit chain", seed=7)
@@ -488,10 +761,29 @@ def main():
     log("[7] the n = 512 bootstrap on the card against the CPU")
     bootstrap_against_cpu(ckks, boot)
 
+    def run_bgv(ctx, timed):
+        return bgv_run(bgv, ctx, 21, timed)
+
+    def run_bfv(ctx, timed):
+        levels = BFV_LEVELS if ctx.n == FHE_RING_DIM else 2
+        return bfv_run(bfv, keyswitch, ctx, 23, levels, timed)
+
+    log("[8] BGV at n = 2^15, 128-bit classic")
+    bgv_launches = fhe_at_scale("BGV", run_bgv, ctx_bgv)
+    log("[9] BFV at n = 2^15, 128-bit classic")
+    bfv_launches = fhe_at_scale("BFV", run_bfv, ctx_bfv)
+    log("[10] BGV and BFV at n = 2^12 on the card against the CPU")
+    fhe_against_cpu("BGV", run_bgv, lambda d: bgv.gen_context(
+        bgv.BGVParams(**SMALL_BGV_PARAMS), d))
+    fhe_against_cpu("BFV", run_bfv, lambda d: bfv.gen_context(
+        bfv.BFVParams(**SMALL_BFV_PARAMS), d))
+
     kernels = [{"name": name, "route": "cuda",
                 "source": f"openfhe_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name],
-                "bootstrap_launches": boot_launches[name], **checks[name]}
+                "bootstrap_launches": boot_launches[name],
+                "bgv_launches": bgv_launches[name],
+                "bfv_launches": bfv_launches[name], **checks[name]}
                for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,13 @@ functions place tensors on the current CUDA device unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from . import _build, dcrt, keyswitch
-from .models import ckks, ckks_bootstrap
+from .models import bfv, bgv, ckks, ckks_bootstrap
 
 
 def u64_to_tensor(lo, hi, device=None) -> torch.Tensor:
@@ -120,3 +122,63 @@ def bootstrap_precomp_from_jax(pre) -> ckks_bootstrap.BootstrapPrecomp:
 def bootstrap_precomp_to_numpy(pre: ckks_bootstrap.BootstrapPrecomp) -> dict:
     """-> the keyword arguments of the JAX BootstrapPrecomp."""
     return {f: getattr(pre, f) for f in _PRECOMP_FIELDS}
+
+
+def rotation_keys_from_jax(keys, device=None) -> dict:
+    """{Galois element or rotation: JAX KSKey} -> the same dict of port
+    KSKeys."""
+    return {int(k): kskey_from_jax(v, device) for k, v in keys.items()}
+
+
+def rotation_keys_to_numpy(keys: dict) -> dict:
+    return {k: kskey_to_numpy(v) for k, v in keys.items()}
+
+
+def bv_kskey_from_jax(k, device=None) -> keyswitch.BVKSKey:
+    p = k.params
+    return keyswitch.BVKSKey(
+        u64_to_tensor(k.b_lo, k.b_hi, device),
+        u64_to_tensor(k.a_lo, k.a_hi, device),
+        keyswitch.BVKSParams(p.n, tuple(p.q_moduli), p.log_base))
+
+
+def bv_kskey_to_numpy(k: keyswitch.BVKSKey):
+    """-> (b_lo, b_hi, a_lo, a_hi) for the JAX BVKSKey."""
+    return tensor_to_u64(k.b) + tensor_to_u64(k.a)
+
+
+def _context_from_jax(gen_context, params_type, ctx, device):
+    """The port's context built from the JAX context's params; its moduli
+    must come out the same."""
+    port = gen_context(params_type(**dataclasses.asdict(ctx.params)), device)
+    for name in ("q_moduli", "r_moduli", "p_moduli"):
+        if getattr(port, name, None) != getattr(ctx, name, None):
+            raise ValueError(f"{name} differ between the packages")
+    return port
+
+
+def bgv_context_from_jax(ctx, device=None) -> bgv.BGVContext:
+    return _context_from_jax(bgv.gen_context, bgv.BGVParams, ctx, device)
+
+
+def bfv_context_from_jax(ctx, device=None) -> bfv.BFVContext:
+    return _context_from_jax(bfv.gen_context, bfv.BFVParams, ctx, device)
+
+
+def bgv_ciphertext_from_jax(ct, device=None) -> bgv.Ciphertext:
+    return bgv.Ciphertext(tuple(poly_from_jax(p, device) for p in ct.polys))
+
+
+def bfv_ciphertext_from_jax(ct, device=None) -> bfv.Ciphertext:
+    return bfv.Ciphertext(tuple(poly_from_jax(p, device) for p in ct.polys),
+                          noise_deg=int(ct.noise_deg))
+
+
+def bgv_ciphertext_to_numpy(ct: bgv.Ciphertext):
+    """-> [(lo, hi) per poly]."""
+    return [poly_to_numpy(p) for p in ct.polys]
+
+
+def bfv_ciphertext_to_numpy(ct: bfv.Ciphertext):
+    """-> ([(lo, hi) per poly], noise_deg)."""
+    return [poly_to_numpy(p) for p in ct.polys], ct.noise_deg

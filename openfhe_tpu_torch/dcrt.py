@@ -177,6 +177,13 @@ def to_coeff(a: RnsPoly) -> RnsPoly:
     return a.with_data(ntt.inverse(a.data, a.basis.moduli), fmt=Format.COEFF)
 
 
+def ntt_forward_data(basis: RnsBasis, data: torch.Tensor) -> torch.Tensor:
+    """Forward NTT of raw residues [..., L, n] over `basis` (the JAX
+    package's entry point that honours its distributed-NTT setting; the port
+    runs on one card)."""
+    return ntt.forward(data, basis.moduli)
+
+
 def automorphism(a: RnsPoly, k: int) -> RnsPoly:
     if a.fmt == Format.EVAL:
         return a.with_data(automorph.apply_eval(a.data, a.basis.n, k))

@@ -1,7 +1,6 @@
 """Hybrid (RNS-digit) key switching: relinearization and rotation.
 
-Counterpart of ``openfhe_tpu/keyswitch.py:1-445`` (the BV switch of its
-``:455-567`` is not ported yet). The chain Q = q_0..q_{L-1} is split into
+Counterpart of ``openfhe_tpu/keyswitch.py``, hybrid and BV. The chain Q = q_0..q_{L-1} is split into
 ``dnum`` digits of ``alpha`` towers. A key for target secret s' holds, per
 digit j, b_j = -a_j s + e_j + [P * QHat_j * (QHat_j^{-1} mod D_j)] * s' over
 Q*P, so one key made at full level switches at every level.
@@ -11,6 +10,11 @@ into the complement and one batched forward NTT over Q_l*P
 (``hoist_decompose``), the digit inner product with the key (the
 ``ks_inner_product`` kernel), then one mod-down by P over both outputs
 (``hoist_inner_product``).
+
+BV switching (``bv_keygen``/``bv_apply``) needs no special primes: c is cut
+per tower into base-2^r digits, and the digits' inner product with the key
+runs on the same ``ks_inner_product`` kernel, at most ``MAX_DIGITS`` digits
+a launch.
 
 Randomness comes from the caller's numpy Generator in the JAX package's
 order, so keys are bit-equal to its keys for the same seed.
@@ -109,10 +113,11 @@ def _error_rows(n, moduli, rng, sigma, error_scale, count) -> np.ndarray:
         for _ in range(count)])
 
 
-def _digit_b(basis: RnsBasis, a, e_rows, s_enc, s_target, params, device):
-    """b = f_j * s_enc + e - a * s_target over [..., dnum, L+K, n]."""
+def _digit_b(basis: RnsBasis, a, e_rows, s_enc, s_target, factors, device):
+    """b = f_j * s_enc + e - a * s_target over [..., digits, L, n]; factors:
+    the [digits, L, 1] f_j and their Shoup precons."""
     mod = basis.mod(device)
-    fac, fac_pre = _digit_factor_table(params, str(torch.device(device)))
+    fac, fac_pre = factors
     e = ntt.forward(dcrt.rows_tensor(e_rows, device), basis.moduli)
     gterm = mul_mod_shoup(s_enc, fac, fac_pre, mod.q)
     return sub_mod(add_mod(gterm, e, mod.q), mul_mod(a, s_target, mod), mod.q)
@@ -139,7 +144,8 @@ def keygen_with_a(params: KSParams, s_from: RnsPoly, s_to: RnsPoly,
     assert s_from.basis == basis and s_to.basis == basis
     e_rows = _error_rows(params.n, basis.moduli, rng, sigma, error_scale,
                          params.dnum)
-    b = _digit_b(basis, a, e_rows, s_to.data, s_from.data, params,
+    b = _digit_b(basis, a, e_rows, s_to.data, s_from.data,
+                 _digit_factor_table(params, str(s_from.device)),
                  s_from.device)
     return KSKey(b, a, params)
 
@@ -159,7 +165,8 @@ def keygen_batch(params: KSParams, s_from: RnsPoly, s_enc_list,
                                  dnum) for _ in range(K)])
     a = dcrt.rows_tensor(a_np, dev)
     s_enc = torch.stack([s.data for s in s_enc_list])[:, None]
-    b = _digit_b(basis, a, e_np, s_enc, s_from.data, params, dev)
+    b = _digit_b(basis, a, e_np, s_enc, s_from.data,
+                 _digit_factor_table(params, str(dev)), dev)
     return [KSKey(b[k], a[k], params) for k in range(K)]
 
 
@@ -218,4 +225,100 @@ def hoist_rotate_apply(key: KSKey, digits: torch.Tensor, basis: RnsBasis,
     inner-product it with the rotation key."""
     rotated = automorph.apply_eval(digits, basis.n, galois_k)
     return hoist_inner_product(key, rotated, basis)
+
+
+
+# ---------------------------------------------------------------------------
+# BV key switching (openfhe_tpu/keyswitch.py:455-567): digit decomposition
+# per tower, no special primes (reference: KeySwitchBV, BaseDecompose).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BVKSParams:
+    n: int
+    q_moduli: Tuple[int, ...]
+    log_base: int  # relinearization window r (digits in base 2^r)
+
+    def num_digits(self, tower: int) -> int:
+        return -(-self.q_moduli[tower].bit_length() // self.log_base)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BVKSKey:
+    """Per (tower i, digit d), in that order: an RLWE pair over the full Q
+    encrypting B^d * delta_i * s_to; b and a are [sum of digits, L, n]."""
+
+    b: torch.Tensor
+    a: torch.Tensor
+    params: BVKSParams
+
+
+@lru_cache(maxsize=None)
+def _bv_factor_table(params: BVKSParams, device: str):
+    """[digits, L, 1]: B^d mod q_i in tower i and 0 elsewhere, per (i, d)."""
+    B = 1 << params.log_base
+    qs = params.q_moduli
+    facs, pres = [], []
+    for i in range(len(qs)):
+        for d in range(params.num_digits(i)):
+            fac, pre = shoup_consts(
+                [pow(B, d, q) if j == i else 0 for j, q in enumerate(qs)],
+                qs, device)
+            facs.append(fac)
+            pres.append(pre)
+    return torch.stack(facs), torch.stack(pres)
+
+
+def bv_keygen(params: BVKSParams, s_from: RnsPoly, s_to: RnsPoly,
+              rng: np.random.Generator, sigma: float = 3.19,
+              error_scale: int = 1) -> BVKSKey:
+    """s_from/s_to are EVAL over the full Q basis (no extension). Draws, for
+    each digit in turn, its `a` and then its error."""
+    basis = RnsBasis(params.n, params.q_moduli)
+    assert s_from.basis == basis and s_to.basis == basis
+    dev = s_from.device
+    factors = _bv_factor_table(params, str(dev))
+    a_rows, e_rows = [], []
+    for _ in range(factors[0].shape[0]):
+        a_rows.append(sampling.uniform_rns_rows(params.n, basis.moduli, rng))
+        e_rows.append(sampling.signed_to_rns_rows(
+            sampling.gaussian_coeffs(params.n, rng, sigma) * error_scale,
+            basis.moduli))
+    a = dcrt.rows_tensor(np.stack(a_rows), dev)
+    b = _digit_b(basis, a, np.stack(e_rows), s_to.data, s_from.data,
+                 factors, dev)
+    return BVKSKey(b, a, params)
+
+
+def bv_apply(key: BVKSKey, c: RnsPoly) -> Tuple[RnsPoly, RnsPoly]:
+    """Key-switch EVAL c over Q_l with the base-2^r digits of each tower
+    residue (plain limbs, below every q_j, so each digit is one polynomial
+    over all of Q_l): (d0, d1) = sum over digits of dig * (b, a)."""
+    params = key.params
+    assert c.fmt == Format.EVAL
+    lvl = c.basis.L
+    assert c.basis.moduli == params.q_moduli[:lvl]
+    if params.log_base > 32:
+        raise ValueError("BV digits wider than 32 bits are not supported")
+    c_coeff = ntt.inverse(c.data, c.basis.moduli)          # [lvl, n]
+    shifts = [(i, d * params.log_base) for i in range(lvl)
+              for d in range(params.num_digits(i))]
+    idx = elementwise._rows_tensor(tuple(i for i, _ in shifts),
+                                   str(c.device))
+    sh = elementwise._rows_tensor(tuple(s for _, s in shifts), str(c.device))
+    dig = (c_coeff[idx] >> sh[:, None]) & ((1 << params.log_base) - 1)
+    # the digits of towers below lvl are the key's first rows, in order
+    digits = ntt.forward(dig[:, None, :].expand(-1, lvl, -1).contiguous(),
+                         c.basis.moduli)                   # [D, lvl, n]
+    mod = c.basis.mod(c.device)
+    rows = list(range(lvl))
+    acc = None
+    for s in range(0, len(shifts), elementwise.MAX_DIGITS):
+        e = min(s + elementwise.MAX_DIGITS, len(shifts))
+        part = elementwise.ks_inner_product(digits[s:e], key.b[s:e],
+                                            key.a[s:e], rows, mod)
+        acc = part if acc is None else add_mod(acc, part, mod.q)
+    return (RnsPoly(acc[0], c.basis, Format.EVAL),
+            RnsPoly(acc[1], c.basis, Format.EVAL))
 

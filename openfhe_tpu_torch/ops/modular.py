@@ -132,6 +132,42 @@ def mulhi64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a1 * b1 + shr32(p01) + shr32(p10) + shr32(mid)
 
 
+def mul64_full(a: torch.Tensor, b: torch.Tensor):
+    """Full unsigned 64x64 -> 128-bit product of two bit patterns as
+    (lo, hi): lo is the wrapping product, hi is ``mulhi64``."""
+    return a * b, mulhi64(a, b)
+
+
+def limb_sum(parts, limbs: int, bias: int = 0, dim: int = -2) -> list:
+    """Exact sum over axis `dim` of unsigned 64-bit words placed at 32-bit
+    limb weights, plus a constant `bias`, modulo 2^(32*limbs).
+
+    parts: (tensor of 64-bit patterns, weight in 32-bit limbs) pairs, one
+    of them at weight 0. Each word is split into its 32-bit halves, each half
+    is summed over `dim` in int64 (fewer than 2^31 words cannot overflow),
+    and one carry propagation gives the result as `limbs` int64 tensors of
+    32 bits each, lowest first: the integer a chain of 64-bit adds with
+    carry gives."""
+    cols = [None] * limbs
+    for x, w in parts:
+        for k, half in ((w, x & MASK32), (w + 1, shr32(x))):
+            if k < limbs:
+                s = half.sum(dim=dim)
+                cols[k] = s if cols[k] is None else cols[k] + s
+    out, carry = [], 0
+    for k, c in enumerate(cols):
+        c = carry if c is None else c + carry
+        c = c + ((bias >> (32 * k)) & MASK32)
+        out.append(c & MASK32)
+        carry = c >> 32
+    return out
+
+
+def join32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The 64-bit pattern hi * 2^32 + lo of two 32-bit limbs."""
+    return lo | (hi << 32)
+
+
 # ---------------------------------------------------------------------------
 # Core ops. Inputs reduced (< q) unless stated; outputs reduced.
 # ---------------------------------------------------------------------------

@@ -2,9 +2,9 @@
 bootstrap goes, on one GPU.
 
     python3 -m openfhe_tpu_torch.profile_ops [ops] [passes] [butterfly]
-                                             [bootstrap]
+                                             [bootstrap] [bgv] [bfv]
 
-(no argument: all four sections).
+(no argument: all six sections).
 
 For EvalMult+relinearize, rescale and EvalRotate at n = 2^16 on the 60-bit
 chain (8 towers + 3 special primes) and on the composite chain (16 towers of
@@ -28,6 +28,12 @@ plaintext encoding takes inside one run (``encoding.ckks_encode`` and
 ``sampling.signed_to_rns_rows``, and the whole ``ckks.encode`` with its
 copy to the card and its NTT), beside what the exact Python-int path of
 the JAX package's encoder would take for the same plaintexts.
+Then BGV and BFV at n = 2^15 (chip_smoke.py phases 8 and 9), warm, as the
+CKKS ops above: BGV's EvalMult+relinearize, mod_reduce, EvalRotate and
+decrypt; BFV's HPS EvalMult with and without relinearization, its
+scale-back (the plain-torch scale_and_round and exact_switch_basis over the
+three products, together and each alone), relinearize, EvalRotate and
+decrypt.
 Prints one line per op, per pass, per butterfly and per bootstrap figure
 and a last line of JSON with every number. Needs a CUDA device and nvcc.
 """
@@ -44,9 +50,9 @@ import numpy as np
 import torch
 
 from . import _build, encoding
-from .models import ckks
+from .models import bfv, bgv, ckks
 from .models import ckks_bootstrap as boot
-from .ops import ntt
+from .ops import ntt, rns
 from .utils import sampling
 
 RING_DIM = 1 << 16
@@ -114,6 +120,12 @@ def profile_chain(label: str, composite_degree: int, seed: int) -> list:
     ops = {"MultRelin": lambda: ckks.eval_mult_relin(ct1, ct2, evk),
            "rescale": lambda: ckks.rescale_ctx(ctx, prod),
            "Rotate": lambda: ckks.eval_rotate(res, 1, rk)}
+    return profile_op_set(label, ops)
+
+
+def profile_op_set(label: str, ops: dict) -> list:
+    """Host-clock latency of each warm op (median and quartiles of
+    TIMED_RUNS) and its profiled device time, kernels and kernel shares."""
     rows = []
     for name, fn in ops.items():
         fn()                                   # tables built, caches filled
@@ -131,6 +143,68 @@ def profile_chain(label: str, composite_degree: int, seed: int) -> list:
               flush=True)
         rows.append(row)
     return rows
+
+
+FHE_RING_DIM = 1 << 15
+
+
+def profile_bgv() -> list:
+    """BGV at chip_smoke.py phase 8's parameters (n = 2^15, 10 towers + 4
+    special primes, t = 65537): EvalMult+relinearize, mod_reduce and
+    EvalRotate at the full level, and decrypt (host CRT and slot NTT)."""
+    ctx = bgv.gen_context(bgv.BGVParams(
+        ring_dim=FHE_RING_DIM, mult_depth=9, plaintext_modulus=65537,
+        mod_size=60, dnum=3, security_level="HEStd_128_classic"))
+    rng = np.random.default_rng(21)
+    pk, sk = bgv.keygen(ctx, rng)
+    evk = bgv.relin_keygen(ctx, sk, rng)
+    k = bgv.rotation_galois(ctx.n, 1)
+    rk = bgv.rot_keygen(ctx, sk, [k], rng)[k]
+    v = rng.integers(0, ctx.t, size=ctx.n).tolist()
+    ct1, ct2 = (bgv.encrypt(ctx, pk, v, rng) for _ in range(2))
+    prod = bgv.eval_mult_relin(ct1, ct2, evk)
+    return profile_op_set("BGV", {
+        "MultRelin": lambda: bgv.eval_mult_relin(ct1, ct2, evk),
+        "mod_reduce": lambda: bgv.mod_reduce(ctx, prod),
+        "Rotate": lambda: bgv.eval_rotate(ct1, 1, rk),
+        "decrypt": lambda: bgv.decrypt(ctx, sk, prod)})
+
+
+def profile_bfv() -> list:
+    """BFV at chip_smoke.py phase 9's parameters (n = 2^15, Q 10 towers,
+    R 11, P 4): the HPS EvalMult and its relinearization, the plain-torch
+    scale-back of its three products alone (scale_and_round S -> R, then
+    the centered exact switch R -> Q, each also on its own), EvalRotate and
+    decrypt."""
+    ctx = bfv.gen_context(bfv.BFVParams(
+        ring_dim=FHE_RING_DIM, plaintext_modulus=65537, num_towers=10,
+        mod_size=60, dnum=3, security_level="HEStd_128_classic"))
+    rng = np.random.default_rng(23)
+    pk, sk = bfv.keygen(ctx, rng)
+    evk = bfv.relin_keygen(ctx, sk, rng)
+    k = bfv.rotation_galois(ctx.n, 1)
+    rk = bfv.rot_keygen(ctx, sk, [k], rng)[k]
+    v = rng.integers(0, ctx.t, size=ctx.n).tolist()
+    ct1, ct2 = (bfv.encrypt(ctx, pk, v, rng) for _ in range(2))
+    prod = bfv.eval_mult(ctx, ct1, ct2)
+    qm, rm = ctx.q_moduli, ctx.r_moduli
+    sm = qm + rm
+    cols = [rng.integers(0, q, size=(3, ctx.n), dtype=np.uint64) for q in sm]
+    y = torch.from_numpy(np.stack(cols, axis=-2).astype(np.int64)).cuda()
+    y_r = rns.scale_and_round(y, sm, rm, ctx.t, qm)
+    return profile_op_set("BFV", {
+        "Mult (HPS)": lambda: bfv.eval_mult(ctx, ct1, ct2),
+        "MultRelin (HPS)": lambda: bfv.eval_mult_relin(ctx, ct1, ct2, evk),
+        "scale-back [3, 21] -> [3, 10]": lambda: rns.exact_switch_basis(
+            rns.scale_and_round(y, sm, rm, ctx.t, qm), rm, qm,
+            centered=True),
+        "scale_and_round [3, 21] -> [3, 11]": lambda: rns.scale_and_round(
+            y, sm, rm, ctx.t, qm),
+        "exact_switch_basis [3, 11] -> [3, 10]":
+            lambda: rns.exact_switch_basis(y_r, rm, qm, centered=True),
+        "relinearize": lambda: bfv.relinearize(prod, evk),
+        "Rotate": lambda: bfv.eval_rotate(ct1, 1, rk),
+        "decrypt": lambda: bfv.decrypt(ctx, sk, ct1)})
 
 
 def profile_ntt_passes(label: str, moduli: tuple, lead: tuple) -> list:
@@ -294,7 +368,7 @@ def profile_bootstrap() -> dict:
     return row
 
 
-SECTIONS = ("ops", "passes", "butterfly", "bootstrap")
+SECTIONS = ("ops", "passes", "butterfly", "bootstrap", "bgv", "bfv")
 
 
 def main() -> None:
@@ -326,6 +400,10 @@ def main() -> None:
         out["butterfly_clocks"] = butterfly_clocks()
     if "bootstrap" in wanted:
         out["bootstrap"] = profile_bootstrap()
+    if "bgv" in wanted:
+        out["bgv"] = profile_bgv()
+    if "bfv" in wanted:
+        out["bfv"] = profile_bfv()
     print(json.dumps(out), flush=True)
 
 

@@ -2,7 +2,8 @@
 
 Every test here needs a CUDA GPU and skips without one; on a machine with a
 card run ``python -m pytest tests/test_torch_cuda.py -q``. ``chip_smoke.py``
-repeats these checks at the main path's shapes (n = 2^16).
+repeats these checks at the main path's shapes (n = 2^16) and at BGV's and
+BFV's (n = 2^15).
 """
 
 import numpy as np
@@ -90,3 +91,79 @@ def test_apply_eval_on_the_card(cuda, k, lead):
     x = _uniform(moduli, lead[:-1] + (n,), seed=k)
     want = automorph.apply_eval(x, n, k)
     assert torch.equal(automorph.apply_eval(x.to(cuda), n, k).cpu(), want)
+
+
+def _fhe_contexts():
+    """BGV's and BFV's contexts of chip_smoke.py phases 8 and 9 (n = 2^15;
+    only their primes are used here)."""
+    from openfhe_tpu_torch.models import bfv, bgv
+    ctx_bgv = bgv.gen_context(bgv.BGVParams(
+        ring_dim=1 << 15, mult_depth=9, plaintext_modulus=65537, mod_size=60,
+        dnum=3, security_level="HEStd_128_classic"), "cpu")
+    ctx_bfv = bfv.gen_context(bfv.BFVParams(
+        ring_dim=1 << 15, plaintext_modulus=65537, num_towers=10,
+        mod_size=60, dnum=3, security_level="HEStd_128_classic"), "cpu")
+    return ctx_bgv, ctx_bfv
+
+
+@pytest.mark.parametrize("lead", [(), (4,)])
+def test_ntt_kernel_at_the_bfv_s_basis(cuda, lead):
+    """The BFV lift and scale-back: 21 towers of S = Q∪R at n = 2^15."""
+    _, ctx = _fhe_contexts()
+    moduli = ctx.q_moduli + ctx.r_moduli
+    x = _uniform(moduli, lead + (1 << 15,), seed=21)
+    t_cpu = ntt.tables(1 << 15, moduli, "cpu")
+    got = ntt.forward(x.to(cuda), moduli)
+    assert torch.equal(got.cpu(), ntt.forward_plain(x, t_cpu))
+    assert torch.equal(ntt.inverse(got, moduli).cpu(), x)
+
+
+@pytest.mark.parametrize("which", ["bgv_qp", "bv_chunk"])
+def test_ks_inner_product_at_bgv_and_bv_shapes(cuda, which):
+    """[3, 14, 2^15] over BGV's Q∪P (primes ≡ 1 mod 2nt, P below Q) and a
+    BV chunk of 15 digits [15, 10, 2^15] over BFV's Q."""
+    ctx_bgv, ctx_bfv = _fhe_contexts()
+    n = 1 << 15
+    moduli, ndig = (ctx_bgv.q_moduli + ctx_bgv.p_moduli, 3) \
+        if which == "bgv_qp" else (ctx_bfv.q_moduli, 15)
+    rows = list(range(len(moduli)))
+    digits, kb, ka = (_uniform(moduli, (ndig, n), seed=s) for s in (7, 8, 9))
+    want = elementwise.ks_inner_product(
+        digits, kb, ka, rows, modular.make_mod_consts(moduli, "cpu"))
+    got = elementwise.ks_inner_product(
+        digits.to(cuda), kb.to(cuda), ka.to(cuda), rows,
+        modular.make_mod_consts(moduli, cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("scheme", ["bgv", "bfv"])
+def test_schemes_on_the_card_equal_the_cpu(cuda, scheme):
+    """gen_context(params) lands on the current CUDA device; a product,
+    its relinearization, a rotation and the decryption there equal the CPU
+    run's."""
+    from openfhe_tpu_torch.models import bfv, bgv
+    mod = bgv if scheme == "bgv" else bfv
+    params = bgv.BGVParams(ring_dim=1024, mult_depth=2, mod_size=60,
+                           dnum=2, plaintext_modulus=12289) \
+        if scheme == "bgv" else bfv.BFVParams(
+            ring_dim=1024, plaintext_modulus=12289, num_towers=2,
+            mod_size=60, dnum=2)
+    assert mod.gen_context(params).device.type == "cuda"
+    runs = []
+    for device in (cuda, "cpu"):
+        ctx = mod.gen_context(params, device)
+        rng = np.random.default_rng(3)
+        pk, sk = mod.keygen(ctx, rng)
+        evk = mod.relin_keygen(ctx, sk, rng)
+        k = mod.rotation_galois(ctx.n, 1)
+        rk = mod.rot_keygen(ctx, sk, [k], rng)[k]
+        v = rng.integers(0, 12289, size=ctx.n).tolist()
+        ct = mod.encrypt(ctx, pk, v, rng)
+        prod = mod.relinearize(mod.eval_mult(ct, ct) if scheme == "bgv"
+                               else mod.eval_mult(ctx, ct, ct), evk)
+        rot = mod.eval_rotate(prod, 1, rk)
+        runs.append(([p.data.cpu() for c in (ct, prod, rot)
+                      for p in c.polys], mod.decrypt(ctx, sk, rot)))
+    (gpu, gpu_slots), (cpu, cpu_slots) = runs
+    assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
+    assert gpu_slots == cpu_slots

@@ -1,6 +1,6 @@
 """The port stands apart from JAX: no module of ``openfhe_tpu_torch`` imports
-jax or anything of ``openfhe_tpu``, the slices (the CKKS main path and the
-bootstrap) run on the CPU (when asked to) without loading either, and the
+jax or anything of ``openfhe_tpu``, the slices (the CKKS main path, the
+bootstrap, BGV and BFV) run on the CPU (when asked to) without loading either, and the
 CUDA-only paths raise instead of falling back when they get what they do not
 take or find no card.
 """
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from openfhe_tpu_torch import _build, convert
-from openfhe_tpu_torch.models import ckks
+from openfhe_tpu_torch.models import bfv, bgv, ckks
 from openfhe_tpu_torch.ops import modular, ntt, rns
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,7 +37,8 @@ def _imports(path: Path):
 
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 SLICE_MODULES = ["ckks.py", "ckks_advanced.py", "ckks_bootstrap.py",
-                 "ckks_fft.py"]
+                 "ckks_fft.py", "bgv.py", "bfv.py", "rns.py", "keyswitch.py",
+                 "encoding.py"]
 
 
 def test_guard_covers_every_slice_module():
@@ -83,6 +84,26 @@ out = boot.eval_bootstrap(ctx, keys, pre, low)
 staged = boot.setup(ctx, slots=4, level_budget=(2, 2))
 print(out.towers, float(np.max(np.abs(ckks.decrypt(ctx, sk, out, 4).real
                                       - vals))), len(staged.cts))
+from openfhe_tpu_torch.models import bfv, bgv
+ctx = bgv.gen_context(bgv.BGVParams(ring_dim=64, mult_depth=2,
+                                    plaintext_modulus=257, mod_size=50,
+                                    dnum=2), "cpu")
+pk, sk = bgv.keygen(ctx, rng)
+evk = bgv.relin_keygen(ctx, sk, rng)
+v = rng.integers(0, 257, 64)
+ct = bgv.encrypt(ctx, pk, v.tolist(), rng)
+ct = bgv.mod_reduce(ctx, bgv.eval_mult_relin(ct, ct, evk))
+bgv_ok = bgv.decrypt(ctx, sk, ct) == (v * v % 257).tolist()
+ctx = bfv.gen_context(bfv.BFVParams(ring_dim=64, plaintext_modulus=257,
+                                    num_towers=2, mod_size=50, dnum=2), "cpu")
+pk, sk = bfv.keygen(ctx, rng)
+evk = bfv.relin_keygen(ctx, sk, rng)
+ct = bfv.encrypt(ctx, pk, v.tolist(), rng)
+prods = [bfv.relinearize(m(ctx, ct, ct), evk) for m in
+         (bfv.eval_mult, bfv.eval_mult_povq, bfv.eval_mult_behz)]
+bfv_ok = all(bfv.decrypt(ctx, sk, p) == (v * v % 257).tolist()
+             for p in prods)
+print(bgv_ok, bfv_ok)
 print(before, "jax" in sys.modules)
 print(sorted(m for m in sys.modules
              if m == "openfhe_tpu" or m.startswith("openfhe_tpu.")))
@@ -94,7 +115,9 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    err, booted, flags, jax_package = proc.stdout.strip().splitlines()[-4:]
+    err, booted, exact, flags, jax_package = \
+        proc.stdout.strip().splitlines()[-5:]
+    assert exact == "True True", "BGV or BFV did not decrypt exactly"
     assert float(err) < 1e-6
     towers, boot_err, factors = booted.split()
     assert int(towers) > 3 and float(boot_err) < 5e-2 and factors == "2"
@@ -131,6 +154,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     params = ckks.CKKSParams(ring_dim=64, mult_depth=1)
     zeros = np.zeros((1, 4), dtype=np.uint32)
     for call in (lambda: ckks.gen_context(params),
+                 lambda: bgv.gen_context(bgv.BGVParams(ring_dim=64)),
+                 lambda: bfv.gen_context(bfv.BFVParams(ring_dim=64)),
                  lambda: convert.u64_to_tensor(zeros, zeros),
                  lambda: modular.int_tensor([1, 2]),
                  lambda: modular.make_mod_consts([97]),
