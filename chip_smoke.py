@@ -30,9 +30,17 @@ HPSPOVERQLEVELED and BEHZ, rotation, eval_sum, the coefficient and string
 encodings, compress and a BV relinearisation, each exact. Phase 10 holds
 BGV and BFV at n = 2^12 on the card equal to the CPU run in every key,
 every ciphertext and every decryption. The kernels are held against their
-twins at the BGV and BFV shapes too. The line before the last is a JSON
-object with each kernel's launches (on the main path, in one bootstrap, in
-phase 8 and in phase 9), error against its twin, times (L2-warm
+twins at the BGV and BFV shapes too. Phases 11 to 13 run threshold FHE on
+the contexts of phases 3, 8 and 9: joint keys, the joint relinearization
+and rotation keys, evaluation and distributed decryption (CKKS and BGV with
+3 parties, BFV with 5), and the interactive bootstrap of CKKS at n = 2^16.
+Phase 14 re-encrypts (PRE) in all three modes for each scheme, phase 15
+saves and loads keys and ciphertexts in both archive flavours, and phase 16
+holds the flows of phases 11-14 at small n on the card equal to the CPU
+run. The kernels are held against their twins at the key shares' shapes
+too. The line before the last is a JSON object with each kernel's launches
+(on the main path, in one bootstrap, in phase 8, in phase 9, in phases 11-13
+and in phase 14), error against its twin, times (L2-warm
 ``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
 least time the card could take for the call; the last line is the JSON
 device summary. There is no CPU path:
@@ -40,8 +48,10 @@ without a CUDA device it exits non-zero.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -226,8 +236,9 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
     the bootstrap chain's (45- and 55-bit towers, 60-bit special primes),
     at BGV's and BFV's (n = 2^15: the BFV S = Q∪R basis, BGV's Q∪P with
     primes ≡ 1 mod 2nt, a BV chunk of 15 digits) and at one ring dimension
-    that takes the NTT's generic path. Each kernel's summary entry is its
-    CKKS main-path keyswitch shape's and lists every shape under
+    that takes the NTT's generic path, and at the key shares of threshold
+    FHE (both halves of every digit at once). Each kernel's summary entry is
+    its CKKS main-path keyswitch shape's and lists every shape under
     ``shapes``."""
     from openfhe_tpu_torch.ops import elementwise, modular, ntt
 
@@ -248,6 +259,9 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
              (f"[{len(s_basis)}, {nf}] 60-bit BFV S", s_basis, (), nf),
              (f"[4, {len(s_basis)}, {nf}] 60-bit BFV S", s_basis, (4,), nf),
              (f"[3, {len(bgv_qp)}, {nf}] 60-bit BGV QP", bgv_qp, (3,), nf),
+             (f"[6, {len(bgv_qp)}, {nf}] 60-bit BGV QP (key share)", bgv_qp,
+              (6,), nf),
+             ("[6, 11, 65536] 60-bit QP (key share)", qp, (6,), n),
              ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
     shapes = {name: [] for name in SOURCES}
     for label, moduli, lead, dim in cases:
@@ -284,9 +298,14 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
             lambda: elementwise.ks_inner_product_plain(
                 digits, kb, ka, rows_t, mod), ks_bound(ndig, len(moduli),
                                                        dim)))
+    # a key share scales both halves of every digit in one launch: the QP
+    # moduli repeated 2 * dnum times
     for label, moduli, dim in (
             (f"[{len(bq)}, 65536] 45/55-bit bootstrap Q", bq, n),
             (f"[{len(s_basis)}, {nf}] 60-bit BFV S (tensor)", s_basis, nf),
+            (f"[{6 * len(bgv_qp)}, {nf}] 60-bit BGV QP x 6 (key share)",
+             bgv_qp * 6, nf),
+            (f"[{6 * len(qp)}, 65536] 60-bit QP x 6 (key share)", qp * 6, n),
             ("[11, 65536] 60-bit QP", qp, n)):
         mod = modular.make_mod_consts(moduli, device)
         x, y, acc = (uniform(moduli, (dim,), rng, device) for _ in range(3))
@@ -442,7 +461,7 @@ def bootstrap_at_scale(ckks, boot, ctx):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"bootstrap: kernels never launched: {missing}")
-    return launches
+    return launches, times["bootstrap_warm"]
 
 
 def small_bootstrap_states(ckks, boot, device):
@@ -717,6 +736,395 @@ def fhe_against_cpu(label, run, make_ctx):
         f"to the CPU run; {len(gpu_out)} decryptions equal")
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-16: threshold FHE, interactive bootstrapping, PRE, archives
+# ---------------------------------------------------------------------------
+
+
+def joint_keys(mp, ctx, rng, parties, timed):
+    """The lead's key, then each other party's share folded in."""
+    pk, sk = timed("keygen_lead", lambda: mp.keygen_lead(ctx, rng))
+    sks = [sk]
+    for _ in range(parties - 1):
+        pk, sk = timed("keygen_join", lambda: mp.keygen_join(ctx, pk, rng))
+        sks.append(sk)
+    return pk, sks
+
+
+def joint_eval_keys(mp, ctx, sks, rng, timed):
+    """The two-round joint relinearization key and the one-round joint key
+    of rotation 1; returns (every share, evk, rotation key)."""
+    r1 = [timed("evalmult_round1", lambda: mp.evalmult_round1(ctx, sks[0],
+                                                              rng))]
+    for s in sks[1:]:
+        r1.append(timed("evalmult_round1", lambda: mp.evalmult_round1(
+            ctx, s, rng, prev_key=r1[0])))
+    ab = mp.evalmult_accumulate_round1(r1)
+    r2 = [timed("evalmult_round2", lambda: mp.evalmult_round2(ctx, s, ab,
+                                                              rng))
+          for s in sks]
+    evk = timed("evalmult_finalize", lambda: mp.evalmult_finalize(r2))
+    rsh = [timed("rot_keygen_share", lambda: mp.rot_keygen_share(
+        ctx, sks[0], 1, rng))]
+    for s in sks[1:]:
+        rsh.append(timed("rot_keygen_share", lambda: mp.rot_keygen_share(
+            ctx, s, 1, rng, prev_key=rsh[0])))
+    rk = mp.rot_keygen_finalize(rsh)
+    return r1 + r2 + rsh, evk, rk
+
+
+def dist_decrypt(mp, ctx, sks, ct, rng, timed, slots=None):
+    """Lead + main partial decryptions and their fusion: (partials, slots)."""
+    parts = [timed("decrypt_lead", lambda: mp.decrypt_lead(ctx, sks[0], ct,
+                                                           rng))]
+    for s in sks[1:]:
+        parts.append(timed("decrypt_main", lambda: mp.decrypt_main(
+            ctx, s, ct, rng)))
+    return parts, timed("combine", lambda: mp.combine(ctx, ct, parts, slots))
+
+
+def close(label, got, want, bound):
+    got = np.asarray(got)
+    if not np.all(np.isfinite(got)) or got.shape != np.shape(want):
+        raise AssertionError(f"{label}: decrypted slots malformed")
+    err = float(np.max(np.abs(got.real - want)))
+    if not err < bound:
+        raise AssertionError(f"{label}: error {err} above bound {bound}")
+    return err
+
+
+def threshold_ckks_run(ckks, mp, ctx, seed, timed):
+    """Phase 11's flow: 3 parties' joint keys, encrypt v1 and v2 under the
+    joint key, EvalMult -> relinearize -> rescale -> EvalRotate(1), then
+    distributed decryption. Returns (states, outputs, what the later phases
+    reuse)."""
+    n = ctx.n
+    rng = np.random.default_rng(seed)
+    pk, sks = joint_keys(mp, ctx, rng, 3, timed)
+    shares, evk, rk = joint_eval_keys(mp, ctx, sks, rng, timed)
+    v1 = rng.uniform(-1, 1, size=n // 2)
+    v2 = rng.uniform(-1, 1, size=n // 2)
+    ct1 = timed("encrypt", lambda: ckks.encrypt(ctx, pk, v1, rng))
+    ct2 = timed("encrypt", lambda: ckks.encrypt(ctx, pk, v2, rng))
+    prod = timed("eval_mult_relin", lambda: ckks.eval_mult_relin(ct1, ct2,
+                                                                 evk))
+    res = timed("rescale", lambda: ckks.rescale_ctx(ctx, prod))
+    rot = timed("eval_rotate", lambda: ckks.eval_rotate(res, 1, rk))
+    parts, out = dist_decrypt(mp, ctx, sks, rot, rng, timed, n // 2)
+    single = ckks.decrypt(ctx, sks[0], rot, num_slots=n // 2)
+    states = [pk.b.data.cpu(), pk.a.data.cpu()] + key_states(
+        *shares, evk, rk) + poly_states(ct1, ct2, prod, res, rot) + [
+        p.data.cpu() for p in parts]
+    want = np.roll(v1 * v2, -1)
+    return states, [out, single], dict(pk=pk, sks=sks, evk=evk, rot=rot,
+                                       want=want, ct1=ct1, ct2=ct2)
+
+
+def mp_boot_run(ckks, mp, ctx, pk, sks, seed, timed):
+    """Phase 12's flow (examples/tckks_interactive_mp_bootstrapping.py):
+    spend levels with plaintext products until the message and mask towers
+    are left, the one-round interactive bootstrap, one more plaintext
+    product at the regained level, each distributed-decrypted."""
+    n = ctx.n
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(-1, 1, size=n // 2)
+    ct = ckks.encrypt(ctx, pk, v, rng)
+    keep = ctx.params.scaling_mod_size // ctx.params.first_mod_size + 2
+    ones = np.ones(n // 2)
+    while ct.towers - ctx.params.composite_degree >= keep:
+        ct = ckks.rescale_ctx(ctx, ckks.eval_mult_plain(ctx, ct, ones))
+    small = timed("int_mp_boot_adjust_scale",
+                  lambda: mp.int_mp_boot_adjust_scale(ctx, ct))
+    a = timed("int_mp_boot_random_element_gen",
+              lambda: mp.int_mp_boot_random_element_gen(ctx, rng))
+    pairs = [timed(f"int_mp_boot_decrypt party {i}",
+                   lambda: mp.int_mp_boot_decrypt(ctx, s, small, a, rng))
+             for i, s in enumerate(sks, 1)]
+    agg = timed("int_mp_boot_add", lambda: mp.int_mp_boot_add(pairs))
+    fresh = timed("int_mp_boot_encrypt",
+                  lambda: mp.int_mp_boot_encrypt(ctx, agg, a, small))
+    sq = ckks.rescale_ctx(ctx, ckks.eval_mult_plain(ctx, fresh, v))
+    parts, out = dist_decrypt(mp, ctx, sks, sq, rng, timed, n // 2)
+    states = poly_states(ct, small, fresh, sq) + [a.data.cpu()] + [
+        h.data.cpu() for pair in pairs + [agg] for h in pair] + [
+        p.data.cpu() for p in parts]
+    return states, [out], dict(small=small, fresh=fresh, want=v * v)
+
+
+def threshold_int_run(module, mp, ctx, parties, seed, timed):
+    """Phase 13's flow for BGV or BFV: joint keys, the joint relinearization
+    and rotation keys, EvalMult + relinearize (BGV also mod_reduce; BFV by
+    HPS), a rotation, and a distributed decryption at each step, each
+    held to the plaintext arithmetic mod t."""
+    n, t = ctx.n, ctx.t
+    bgv_like = hasattr(module, "mod_reduce")
+    rng = np.random.default_rng(seed)
+    pk, sks = joint_keys(mp, ctx, rng, parties, timed)
+    shares, evk, rk = joint_eval_keys(mp, ctx, sks, rng, timed)
+    v1 = rng.integers(0, t, size=n)
+    v2 = rng.integers(0, t, size=n)
+    ct1 = timed("encrypt", lambda: module.encrypt(ctx, pk, v1.tolist(), rng))
+    ct2 = timed("encrypt", lambda: module.encrypt(ctx, pk, v2.tolist(), rng))
+    if bgv_like:
+        prod = timed("eval_mult_relin",
+                     lambda: module.eval_mult_relin(ct1, ct2, evk))
+    else:
+        prod = timed("eval_mult_relin",
+                     lambda: module.eval_mult_relin(ctx, ct1, ct2, evk))
+    rot = timed("eval_rotate", lambda: module.eval_rotate(ct1, 1, rk))
+    a, b = rows_of(v1, n)
+    steps = [("fresh", ct1, v1), ("mult+relin", prod, v1 * v2 % t),
+             ("rotate 1", rot, np.concatenate([np.roll(a, -1),
+                                               np.roll(b, -1)]))]
+    if bgv_like:
+        red = timed("mod_reduce", lambda: module.mod_reduce(ctx, prod))
+        steps.append(("mod_reduce", red, v1 * v2 % t))
+    states = [pk.b.data.cpu(), pk.a.data.cpu()] + key_states(
+        *shares, evk, rk)
+    outs = []
+    for name, ct, want in steps:
+        parts, got = dist_decrypt(mp, ctx, sks, ct, rng, timed)
+        states += poly_states(ct) + [p.data.cpu() for p in parts]
+        outs.append(got)
+        exact(f"threshold {name}", got, want.tolist())
+    return states, outs
+
+
+PRE_MODES = ("INDCPA", "FIXED_NOISE_HRA", "NOISE_FLOODING_HRA")
+
+
+def pre_run(module, pre, ctx, seed, timed):
+    """Phase 14's flow for one scheme: sender and receiver keys, rekey_gen,
+    one ciphertext under the sender's key re-encrypted in each mode; the
+    receiver must decrypt each, the sender must not. Returns (states,
+    decryptions, {mode: re-encrypted ciphertext}, the receiver's key)."""
+    n = ctx.n
+    scheme = module.__name__.rsplit(".", 1)[1]
+    scale = ctx.t if scheme == "bgv" else 1
+    rng = np.random.default_rng(seed)
+    pk_a, sk_a = module.keygen(ctx, rng)
+    _, sk_b = module.keygen(ctx, rng)
+    rk = timed("rekey_gen", lambda: pre.rekey_gen(ctx, sk_a, sk_b, rng,
+                                                   error_scale=scale))
+    if scheme == "ckks":
+        v = rng.uniform(-1, 1, size=n // 2)
+    else:
+        v = rng.integers(0, ctx.t, size=n)
+    ct = module.encrypt(ctx, pk_a, v.tolist() if scheme != "ckks" else v,
+                        rng)
+    states = key_states(rk) + poly_states(ct)
+    outs, moved = [], {}
+    for mode in PRE_MODES:
+        c = timed(f"re_encrypt {mode}", lambda: pre.re_encrypt(
+            ct, rk, ctx=ctx, pk=pk_a, mode=mode, rng=rng, noise_scale=scale))
+        moved[mode] = c
+        got = module.decrypt(ctx, sk_b, c)
+        wrong = module.decrypt(ctx, sk_a, c)
+        states += poly_states(c)
+        outs += [got, wrong]
+        label = f"PRE {scheme} {mode}"
+        if scheme == "ckks":
+            close(label, got, v, BOUND)
+            if not np.max(np.abs(np.asarray(wrong).real - v)) > 1e-2:
+                raise AssertionError(f"{label}: the sender's key decrypts")
+        else:
+            exact(label, got, v.tolist())
+            if list(wrong) == v.tolist():
+                raise AssertionError(f"{label}: the sender's key decrypts")
+    return states, outs, moved, sk_b
+
+
+def archive_round_trips(serial, objects, device):
+    """Phase 15: each object saved and loaded back in both flavours; returns
+    {(name, fmt): (loaded object, save s, load s, bytes)}."""
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, obj in objects.items():
+            for fmt in ("binary", "json"):
+                path = f"{d}/{name}.{fmt}"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serial.save(obj, path, fmt)
+                t1 = time.perf_counter()
+                loaded = serial.load(path, device)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                out[name, fmt] = (loaded, t1 - t0, t2 - t1,
+                                  os.path.getsize(path))
+    return out
+
+
+def same_tensors(label, got, want):
+    if len(got) != len(want) or not all(torch.equal(g, w)
+                                        for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: differs from what was saved")
+
+
+def small_threshold_states(device):
+    """Phase 16: the flows of phases 11-14 at small n on `device`: threshold
+    CKKS with the interactive bootstrap on the 60-bit and the composite
+    chain at n = 4096 (the smallest ring the NTT's Hopper path takes),
+    threshold BGV and BFV at n = 2^12, PRE on each."""
+    from openfhe_tpu_torch.models import bfv, bgv, ckks
+    from openfhe_tpu_torch.models import multiparty as mp
+    from openfhe_tpu_torch.models import pre
+    states, outs = [], []
+    for degree, seed in ((1, 31), (2, 37)):
+        ctx = ckks.gen_context(ckks.CKKSParams(
+            ring_dim=4096, mult_depth=3, scaling_mod_size=59,
+            first_mod_size=60, dnum=3, composite_degree=degree), device)
+        st, out, keep = threshold_ckks_run(ckks, mp, ctx, seed, untimed)
+        states += st
+        outs += out
+        st, out, _ = mp_boot_run(ckks, mp, ctx, keep["pk"], keep["sks"],
+                                 seed + 1, untimed)
+        states += st
+        outs += out
+        st, out, _, _ = pre_run(ckks, pre, ctx, seed + 2, untimed)
+        states += st
+        outs += out
+    for module, params, parties, seed in (
+            (bgv, bgv.BGVParams(**SMALL_BGV_PARAMS), 3, 41),
+            (bfv, bfv.BFVParams(**SMALL_BFV_PARAMS), 5, 43)):
+        ctx = module.gen_context(params, device)
+        st, out = threshold_int_run(module, mp, ctx, parties, seed, untimed)
+        states += st
+        outs += out
+        st, out, _, _ = pre_run(module, pre, ctx, seed + 2, untimed)
+        states += st
+        outs += out
+    return states, outs
+
+
+def threshold_and_pre(ctx60, ctx_bgv, ctx_bfv, device, boot_warm_s):
+    """Phases 11-16 on the contexts of phases 3, 8 and 9; returns the
+    launches of phases 11-13 and of phase 14."""
+    from openfhe_tpu_torch.models import bfv, bgv, ckks
+
+    from openfhe_tpu_torch.models import multiparty as mp
+    from openfhe_tpu_torch.models import pre
+    from openfhe_tpu_torch.utils import serial
+
+    log("[11] threshold CKKS at n = 2^16 on the 60-bit chain, 3 parties")
+    times = {}
+    reset_counters()
+    _, (out, single), keep = threshold_ckks_run(ckks, mp, ctx60, 13,
+                                                stage_clock(times))
+    phase11 = read_counters()
+    err = close("threshold CKKS", out, keep["want"], BOUND)
+    single_err = float(np.max(np.abs(np.asarray(single).real
+                                     - keep["want"])))
+    if not single_err > 1e-2:
+        raise AssertionError("one share alone decrypts the joint ciphertext")
+    log(f"  distributed decryption max |err| {err:.3e} (bound {BOUND}); one "
+        f"share alone {single_err:.3e}")
+    log_stages(times)
+    log(f"  launches: {phase11}")
+    missing = [k for k, v in phase11.items() if v == 0]
+    if missing:
+        raise AssertionError(f"threshold CKKS: kernels never launched: "
+                             f"{missing}")
+
+    log("[12] interactive bootstrap at n = 2^16 on the joint key")
+    times = {}
+    _, (out,), boot_out = mp_boot_run(ckks, mp, ctx60, keep["pk"],
+                                      keep["sks"], 17, stage_clock(times))
+    towers = (boot_out["small"].towers, boot_out["fresh"].towers)
+    if towers != (2, len(ctx60.q_moduli)):
+        raise AssertionError(f"interactive bootstrap: towers {towers}")
+    err = close("interactive bootstrap", out, boot_out["want"], BOUND)
+    log(f"  towers {boot_out['small'].towers} -> "
+        f"{boot_out['fresh'].towers}; v^2 after one more product max |err| "
+        f"{err:.3e} (bound {BOUND})")
+    log_stages(times)
+    shares_s = ", ".join(f"{times[f'int_mp_boot_decrypt party {i}'][0]:.4f}"
+                         for i in (1, 2, 3))
+    log(f"  host seconds: the parties' shares {shares_s}, "
+        f"the lead's final step {times['int_mp_boot_encrypt'][0]:.4f}; the "
+        f"single-key bootstrap of phase 6 (warm) {boot_warm_s:.4f}")
+
+    log("[13] threshold BGV (3 parties) and BFV (5 parties) at n = 2^15")
+    for label, module, ctx, parties, seed in (
+            ("BGV", bgv, ctx_bgv, 3, 19), ("BFV", bfv, ctx_bfv, 5, 29)):
+        times = {}
+        threshold_int_run(module, mp, ctx, parties, seed, stage_clock(times))
+        log(f"  {label} n={ctx.n}, {parties} parties: every distributed "
+            f"decryption exact")
+        log_stages(times)
+    threshold_launches = read_counters()
+    log(f"  launches in phases 11-13: {threshold_launches}")
+
+    log("[14] PRE at full width, three modes each")
+    reset_counters()
+    moved = {}
+    for label, module, ctx, seed in (("CKKS", ckks, ctx60, 47),
+                                     ("BGV", bgv, ctx_bgv, 53),
+                                     ("BFV", bfv, ctx_bfv, 59)):
+        times = {}
+        _, _, moved[label], receiver = pre_run(module, pre, ctx, seed,
+                                               stage_clock(times))
+        moved[label + " key"] = receiver
+        log(f"  {label} n={ctx.n}: the receiver decrypts all three modes, "
+            f"the sender none")
+        log_stages(times)
+    pre_launches = read_counters()
+    log(f"  launches: {pre_launches}")
+    missing = [k for k, v in pre_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"PRE: kernels never launched: {missing}")
+
+    log("[15] archives on the card, both flavours")
+    bgv_ct = moved["BGV"]["INDCPA"]
+    saved = {"bgv_ciphertext": bgv_ct, "joint_public_key": keep["pk"],
+             "joint_relin_key": keep["evk"], "ckks_ciphertext": keep["rot"]}
+    for (name, fmt), (obj, save_s, load_s, size) in archive_round_trips(
+            serial, saved, device).items():
+        orig = saved[name]
+        if name.endswith("ciphertext"):
+            same_tensors(f"{name} {fmt}", poly_states(obj), poly_states(orig))
+            if name == "bgv_ciphertext":
+                sk = moved["BGV key"]
+                same = bgv.decrypt(ctx_bgv, sk, obj) == \
+                    bgv.decrypt(ctx_bgv, sk, orig)
+            else:
+                sks = keep["sks"]
+                same = np.array_equal(*(dist_decrypt(
+                    mp, ctx60, sks, c, np.random.default_rng(3), untimed)[1]
+                    for c in (obj, orig)))
+        elif name == "joint_public_key":
+            same_tensors(f"{name} {fmt}", [obj.b.data, obj.a.data],
+                         [orig.b.data, orig.a.data])
+            same = all(torch.equal(x, y) for x, y in zip(*(poly_states(
+                ckks.encrypt(ctx60, key, [0.5], np.random.default_rng(5)))
+                for key in (obj, orig))))
+        else:
+            same_tensors(f"{name} {fmt}", [obj.b, obj.a], [orig.b, orig.a])
+            prod = ckks.eval_mult(keep["ct1"], keep["ct2"])
+            same = all(torch.equal(x, y) for x, y in zip(*(poly_states(
+                ckks.relinearize(prod, key)) for key in (obj, orig))))
+        if not same:
+            raise AssertionError(f"{name} {fmt}: the loaded object does not "
+                                 f"decrypt the same")
+        log(f"  {name} {fmt}: torch.equal and decrypts the same; save "
+            f"{save_s:.4f} s, load {load_s:.4f} s, {size} bytes")
+
+    log("[16] threshold, interactive bootstrap and PRE at small n on the "
+        "card against the CPU")
+    gpu, gpu_out = small_threshold_states(device)
+    cpu, cpu_out = small_threshold_states(torch.device("cpu"))
+    if len(gpu) != len(cpu) or not all(torch.equal(g, c)
+                                       for g, c in zip(gpu, cpu)):
+        raise AssertionError("threshold/PRE on the card differs from the CPU")
+    if len(gpu_out) != len(cpu_out) or not all(
+            np.array_equal(np.asarray(g), np.asarray(c))
+            for g, c in zip(gpu_out, cpu_out)):
+        raise AssertionError("threshold/PRE decryptions differ from the CPU's")
+    log(f"  {len(gpu)} shares, joint keys, partial decryptions and "
+        f"ciphertext polys torch.equal to the CPU run; {len(gpu_out)} "
+        f"decryptions equal")
+    return threshold_launches, pre_launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -757,7 +1165,7 @@ def main():
     log("[5] the slice on the card against the CPU twins")
     check_against_cpu(ckks)
     log("[6] bootstrap at n = 2^16 (e2e_scale.py phase B)")
-    boot_launches = bootstrap_at_scale(ckks, boot, ctx_boot)
+    boot_launches, boot_warm_s = bootstrap_at_scale(ckks, boot, ctx_boot)
     log("[7] the n = 512 bootstrap on the card against the CPU")
     bootstrap_against_cpu(ckks, boot)
 
@@ -778,12 +1186,17 @@ def main():
     fhe_against_cpu("BFV", run_bfv, lambda d: bfv.gen_context(
         bfv.BFVParams(**SMALL_BFV_PARAMS), d))
 
+    threshold_launches, pre_launches = threshold_and_pre(
+        ctx60, ctx_bgv, ctx_bfv, device, boot_warm_s)
+
     kernels = [{"name": name, "route": "cuda",
                 "source": f"openfhe_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name],
                 "bootstrap_launches": boot_launches[name],
                 "bgv_launches": bgv_launches[name],
-                "bfv_launches": bfv_launches[name], **checks[name]}
+                "bfv_launches": bfv_launches[name],
+                "threshold_launches": threshold_launches[name],
+                "pre_launches": pre_launches[name], **checks[name]}
                for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -182,3 +182,8 @@ def bgv_ciphertext_to_numpy(ct: bgv.Ciphertext):
 def bfv_ciphertext_to_numpy(ct: bfv.Ciphertext):
     """-> ([(lo, hi) per poly], noise_deg)."""
     return [poly_to_numpy(p) for p in ct.polys], ct.noise_deg
+
+
+def ckks_context_from_jax(ctx, device=None) -> ckks.CKKSContext:
+    return _context_from_jax(ckks.gen_context, ckks.CKKSParams, ctx, device)
+

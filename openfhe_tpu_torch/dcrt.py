@@ -21,6 +21,7 @@ import torch
 from . import _build
 from .ops import automorph, elementwise, modular, ntt
 from .ops.modular import ModConsts
+from .utils import sampling
 
 
 class Format(str, Enum):
@@ -90,6 +91,13 @@ def zero_poly(basis: RnsBasis, fmt: Format = Format.EVAL,
 
 def from_int_rows(basis: RnsBasis, rows, fmt: Format, device) -> RnsPoly:
     return RnsPoly(rows_tensor(rows, device), basis, fmt)
+
+
+def from_signed(basis: RnsBasis, coeffs, device) -> RnsPoly:
+    """Signed integer coefficients (secrets, errors, floods) -> EVAL poly
+    over `basis` on `device`."""
+    rows = sampling.signed_to_rns_rows(coeffs, basis.moduli)
+    return to_eval(from_int_rows(basis, rows, Format.COEFF, device))
 
 
 def to_int_rows(p: RnsPoly) -> np.ndarray:

@@ -32,8 +32,8 @@ import torch
 from . import dcrt
 from .dcrt import Format, RnsBasis, RnsPoly
 from .ops import automorph, elementwise, ntt, rns
-from .ops.modular import (add_mod, mul_mod, mul_mod_shoup, shoup_consts,
-                          sub_mod)
+from .ops.modular import (add_mod, make_mod_consts, mul_mod, mul_mod_shoup,
+                          shoup_consts, sub_mod)
 from .utils import sampling
 
 
@@ -168,6 +168,56 @@ def keygen_batch(params: KSParams, s_from: RnsPoly, s_enc_list,
     b = _digit_b(basis, a, e_np, s_enc, s_from.data,
                  _digit_factor_table(params, str(dev)), dev)
     return [KSKey(b[k], a[k], params) for k in range(K)]
+
+
+# ---------------------------------------------------------------------------
+# Joint keys (openfhe_tpu/keyswitch.py:234-278): the multiparty protocol's
+# sums and share products of switching keys.
+# ---------------------------------------------------------------------------
+
+
+def key_a_datas(key: KSKey) -> torch.Tensor:
+    """The per-digit `a` [dnum, L+K, n], for reuse by the next party (the
+    JAX package returns it as a list of digits)."""
+    return key.a
+
+
+def add_keys_b(k1: KSKey, k2: KSKey) -> KSKey:
+    """Sum the b components of two keys sharing the same a
+    (reference: MultiAddEvalKeys)."""
+    q = full_basis(k1.params).mod(k1.b.device).q
+    return KSKey(add_mod(k1.b, k2.b, q), k1.a, k1.params)
+
+
+def add_keys_full(k1: KSKey, k2: KSKey) -> KSKey:
+    """Sum both components (reference: MultiAddEvalMultKeys)."""
+    q = full_basis(k1.params).mod(k1.b.device).q
+    return KSKey(add_mod(k1.b, k2.b, q), add_mod(k1.a, k2.a, q), k1.params)
+
+
+def scale_key_by_share(key: KSKey, s_share: RnsPoly,
+                       rng: np.random.Generator, sigma: float = 3.19,
+                       error_scale: int = 1) -> KSKey:
+    """(s_i * b_j + e0, s_i * a_j + e1) per digit: one party's contribution
+    to the joint relinearization key (reference: MultiMultEvalKey). Draws
+    every digit's error for b, then every digit's error for a; both halves
+    then go through one forward NTT and one fused_mac_mod launch."""
+    params = key.params
+    basis = full_basis(params)
+    assert s_share.basis == basis and s_share.fmt == Format.EVAL
+    e_rows = np.concatenate([
+        _error_rows(params.n, basis.moduli, rng, sigma, error_scale,
+                    params.dnum) for _ in range(2)])    # [2*dnum, L+K, n]
+    dev = s_share.device
+    e = ntt.forward(dcrt.rows_tensor(e_rows, dev), basis.moduli)
+    x = torch.cat([key.b, key.a])
+    rows = x.shape[0] * basis.L
+    out = elementwise.fused_mac_mod(
+        x.reshape(rows, params.n),
+        s_share.data.expand(x.shape[0], -1, -1).reshape(rows, params.n),
+        e.reshape(rows, params.n),
+        make_mod_consts(basis.moduli * x.shape[0], dev)).reshape(x.shape)
+    return KSKey(out[:params.dnum], out[params.dnum:], params)
 
 
 def hoist_decompose(params: KSParams, c: RnsPoly) -> torch.Tensor:

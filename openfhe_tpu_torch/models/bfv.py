@@ -212,19 +212,26 @@ def encrypt(ctx: BFVContext, pk: PublicKey, values: Sequence[int],
     return encrypt_poly(ctx, pk, encode(ctx, values), rng)
 
 
+def phase_coeffs(ctx: BFVContext, phase: RnsPoly) -> list:
+    """Plaintext coefficients round(t * phase / Q_l) mod t of an EVAL phase
+    over its own basis (a compressed ciphertext's phase has fewer towers);
+    the JAX package's ``_decrypt_scale(t, moduli)``. Shared by decryption
+    and the multiparty fusion of partial decryptions."""
+    coeff = dcrt.to_coeff(phase)
+    moduli = phase.basis.moduli
+    scaled = rns.scale_and_round(coeff.data, moduli, (ctx.t,), ctx.t, moduli)
+    return scaled[0].cpu().tolist()
+
+
 def _decrypt_coeffs(ctx: BFVContext, sk: SecretKey, ct: Ciphertext) -> list:
     """Plaintext coefficients round(t * (c0 + c1 s + ...) / Q_l) mod t over
     the ciphertext's basis."""
-    basis = ct.basis
-    s = sk.poly(basis, ctx.device)
+    s = sk.poly(ct.basis, ctx.device)
     acc, s_pow = ct.polys[0], s
     for c in ct.polys[1:]:
         acc = dcrt.mul_add(c, s_pow, acc)
         s_pow = dcrt.mul(s_pow, s)
-    coeff = dcrt.to_coeff(acc)
-    scaled = rns.scale_and_round(coeff.data, basis.moduli, (ctx.t,), ctx.t,
-                                 basis.moduli)
-    return scaled[0].cpu().tolist()
+    return phase_coeffs(ctx, acc)
 
 
 def decrypt(ctx: BFVContext, sk: SecretKey, ct: Ciphertext,

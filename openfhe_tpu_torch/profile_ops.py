@@ -3,8 +3,9 @@ bootstrap goes, on one GPU.
 
     python3 -m openfhe_tpu_torch.profile_ops [ops] [passes] [butterfly]
                                              [bootstrap] [bgv] [bfv]
+                                             [threshold]
 
-(no argument: all six sections).
+(no argument: all seven sections).
 
 For EvalMult+relinearize, rescale and EvalRotate at n = 2^16 on the 60-bit
 chain (8 towers + 3 special primes) and on the composite chain (16 towers of
@@ -34,6 +35,11 @@ decrypt; BFV's HPS EvalMult with and without relinearization, its
 scale-back (the plain-torch scale_and_round and exact_switch_basis over the
 three products, together and each alone), relinearize, EvalRotate and
 decrypt.
+Then threshold CKKS at n = 2^16 (chip_smoke.py phase 11, 3 parties), warm,
+as the ops above: one party's shares of the joint relinearization and
+rotation keys, the partial decryptions and their fusion, one party's
+interactive-bootstrap share and the lead's final step; and BGV's
+re-encryption in each PRE mode at n = 2^15.
 Prints one line per op, per pass, per butterfly and per bootstrap figure
 and a last line of JSON with every number. Needs a CUDA device and nvcc.
 """
@@ -207,6 +213,63 @@ def profile_bfv() -> list:
         "decrypt": lambda: bfv.decrypt(ctx, sk, ct1)})
 
 
+def profile_threshold() -> list:
+    """Threshold CKKS at n = 2^16 on the 60-bit chain (chip_smoke.py phase
+    11, 3 parties): one non-lead party's round-1 and round-2 shares of the
+    joint relinearization key and its rotation-key share, the lead's and a
+    main party's partial decryption and their fusion, one party's
+    interactive-bootstrap share and the lead's final step (from 2 towers);
+    then BGV's re_encrypt in each mode at n = 2^15 (phase 14)."""
+    from .models import multiparty as mp
+    from .models import pre
+    params = ckks.CKKSParams(ring_dim=RING_DIM, mult_depth=TOWERS - 1,
+                             scaling_mod_size=59, first_mod_size=60, dnum=3)
+    ctx = ckks.gen_context(params)
+    rng = np.random.default_rng(13)
+    pk, sk1 = mp.keygen_lead(ctx, rng)
+    pk, sk2 = mp.keygen_join(ctx, pk, rng)
+    pk, sk3 = mp.keygen_join(ctx, pk, rng)
+    sks = [sk1, sk2, sk3]
+    r1 = [mp.evalmult_round1(ctx, sk1, rng)]
+    r1 += [mp.evalmult_round1(ctx, s, rng, prev_key=r1[0]) for s in sks[1:]]
+    ab = mp.evalmult_accumulate_round1(r1)
+    rot1 = mp.rot_keygen_share(ctx, sk1, 1, rng)
+    n = ctx.n
+    ct = ckks.encrypt(ctx, pk, rng.uniform(-1, 1, n // 2), rng)
+    parts = [mp.decrypt_lead(ctx, sk1, ct, rng)] + [
+        mp.decrypt_main(ctx, s, ct, rng) for s in sks[1:]]
+    small = ckks.level_reduce(ct, ct.towers - 2)
+    a = mp.int_mp_boot_random_element_gen(ctx, rng)
+    agg = mp.int_mp_boot_add([mp.int_mp_boot_decrypt(ctx, s, small, a, rng)
+                              for s in sks])
+    rows = profile_op_set("threshold CKKS", {
+        "evalmult_round1 (party 2)": lambda: mp.evalmult_round1(
+            ctx, sk2, rng, prev_key=r1[0]),
+        "evalmult_round2": lambda: mp.evalmult_round2(ctx, sk2, ab, rng),
+        "rot_keygen_share (party 2)": lambda: mp.rot_keygen_share(
+            ctx, sk2, 1, rng, prev_key=rot1),
+        "decrypt_lead": lambda: mp.decrypt_lead(ctx, sk1, ct, rng),
+        "decrypt_main": lambda: mp.decrypt_main(ctx, sk2, ct, rng),
+        "combine (3 partials)": lambda: mp.combine(ctx, ct, parts),
+        "int_mp_boot_decrypt": lambda: mp.int_mp_boot_decrypt(
+            ctx, sk2, small, a, rng),
+        "int_mp_boot_encrypt": lambda: mp.int_mp_boot_encrypt(
+            ctx, agg, a, small)})
+    bctx = bgv.gen_context(bgv.BGVParams(
+        ring_dim=FHE_RING_DIM, mult_depth=9, plaintext_modulus=65537,
+        mod_size=60, dnum=3, security_level="HEStd_128_classic"))
+    pk_a, sk_a = bgv.keygen(bctx, rng)
+    _, sk_b = bgv.keygen(bctx, rng)
+    rk = pre.rekey_gen(bctx, sk_a, sk_b, rng, error_scale=bctx.t)
+    bct = bgv.encrypt(bctx, pk_a, rng.integers(0, bctx.t, bctx.n).tolist(),
+                      rng)
+    return rows + profile_op_set("BGV PRE", {
+        f"re_encrypt {mode}": (lambda mode=mode: pre.re_encrypt(
+            bct, rk, ctx=bctx, pk=pk_a, mode=mode, rng=rng,
+            noise_scale=bctx.t))
+        for mode in ("INDCPA", "FIXED_NOISE_HRA", "NOISE_FLOODING_HRA")})
+
+
 def profile_ntt_passes(label: str, moduli: tuple, lead: tuple) -> list:
     """Device time of each pass of forward and inverse at [*lead, L, n] on a
     cold L2, by the kernels' names."""
@@ -368,7 +431,8 @@ def profile_bootstrap() -> dict:
     return row
 
 
-SECTIONS = ("ops", "passes", "butterfly", "bootstrap", "bgv", "bfv")
+SECTIONS = ("ops", "passes", "butterfly", "bootstrap", "bgv", "bfv",
+            "threshold")
 
 
 def main() -> None:
@@ -404,6 +468,8 @@ def main() -> None:
         out["bgv"] = profile_bgv()
     if "bfv" in wanted:
         out["bfv"] = profile_bfv()
+    if "threshold" in wanted:
+        out["threshold"] = profile_threshold()
     print(json.dumps(out), flush=True)
 
 

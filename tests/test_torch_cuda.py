@@ -167,3 +167,56 @@ def test_schemes_on_the_card_equal_the_cpu(cuda, scheme):
     (gpu, gpu_slots), (cpu, cpu_slots) = runs
     assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
     assert gpu_slots == cpu_slots
+
+
+def _threshold_run(device):
+    """Threshold CKKS at n = 1024 (3 parties: joint keys, the joint
+    relinearization key, EvalMult+relinearize, the interactive bootstrap
+    and a distributed decryption), a PRE re-encryption and an archive round
+    trip on `device`."""
+    import tempfile
+    from openfhe_tpu_torch.models import ckks, multiparty as mp, pre
+    from openfhe_tpu_torch.utils import serial
+    ctx = ckks.gen_context(ckks.CKKSParams(
+        ring_dim=1024, mult_depth=3, scaling_mod_size=59, first_mod_size=60,
+        dnum=3), device)
+    rng = np.random.default_rng(5)
+    pk, sk = mp.keygen_lead(ctx, rng)
+    sks = [sk]
+    for _ in range(2):
+        pk, sk = mp.keygen_join(ctx, pk, rng)
+        sks.append(sk)
+    r1 = [mp.evalmult_round1(ctx, sks[0], rng)]
+    r1 += [mp.evalmult_round1(ctx, s, rng, prev_key=r1[0]) for s in sks[1:]]
+    ab = mp.evalmult_accumulate_round1(r1)
+    evk = mp.evalmult_finalize([mp.evalmult_round2(ctx, s, ab, rng)
+                                for s in sks])
+    v = rng.uniform(-1, 1, 512)
+    ct = ckks.encrypt(ctx, pk, v, rng)
+    prod = ckks.rescale(ckks.eval_mult_relin(ct, ct, evk))
+    small = mp.int_mp_boot_adjust_scale(ctx, prod)
+    a = mp.int_mp_boot_random_element_gen(ctx, rng)
+    fresh = mp.int_mp_boot_encrypt(ctx, mp.int_mp_boot_add(
+        [mp.int_mp_boot_decrypt(ctx, s, small, a, rng) for s in sks]),
+        a, small)
+    parts = [mp.decrypt_lead(ctx, sks[0], fresh, rng)] + [
+        mp.decrypt_main(ctx, s, fresh, rng) for s in sks[1:]]
+    _, sk_b = ckks.keygen(ctx, rng)
+    moved = pre.re_encrypt(fresh, pre.rekey_gen(ctx, sks[0], sk_b, rng),
+                           ctx=ctx, pk=pk, mode="FIXED_NOISE_HRA", rng=rng)
+    with tempfile.TemporaryDirectory() as d:
+        serial.save(evk, f"{d}/evk", "json")
+        loaded = serial.load(f"{d}/evk", device)
+    states = [evk.b, evk.a, loaded.b, loaded.a] + [
+        p.data for c in (prod, small, fresh, moved) for p in c.polys] + [
+        p.data for p in parts]
+    return [t.cpu() for t in states], mp.combine(ctx, fresh, parts, 512), v
+
+
+def test_threshold_pre_and_archives_on_the_card_equal_the_cpu(cuda):
+    gpu, gpu_slots, v = _threshold_run(cuda)
+    cpu, cpu_slots, _ = _threshold_run("cpu")
+    assert len(gpu) == len(cpu)
+    assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
+    assert np.array_equal(gpu_slots, cpu_slots)
+    assert np.max(np.abs(gpu_slots.real - v * v)) < 1e-4

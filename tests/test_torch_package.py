@@ -1,8 +1,9 @@
 """The port stands apart from JAX: no module of ``openfhe_tpu_torch`` imports
 jax or anything of ``openfhe_tpu``, the slices (the CKKS main path, the
-bootstrap, BGV and BFV) run on the CPU (when asked to) without loading either, and the
-CUDA-only paths raise instead of falling back when they get what they do not
-take or find no card.
+bootstrap, BGV and BFV, threshold FHE, PRE and the archives) run on the CPU
+(when asked to) without loading either, and the CUDA-only paths raise
+instead of falling back when they get what they do not take or find no
+card.
 """
 
 import ast
@@ -16,8 +17,9 @@ import pytest
 import torch
 
 from openfhe_tpu_torch import _build, convert
-from openfhe_tpu_torch.models import bfv, bgv, ckks
+from openfhe_tpu_torch.models import bfv, bgv, ckks, multiparty, pre
 from openfhe_tpu_torch.ops import modular, ntt, rns
+from openfhe_tpu_torch.utils import serial
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "openfhe_tpu_torch"
@@ -38,7 +40,7 @@ def _imports(path: Path):
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 SLICE_MODULES = ["ckks.py", "ckks_advanced.py", "ckks_bootstrap.py",
                  "ckks_fft.py", "bgv.py", "bfv.py", "rns.py", "keyswitch.py",
-                 "encoding.py"]
+                 "encoding.py", "multiparty.py", "pre.py", "serial.py"]
 
 
 def test_guard_covers_every_slice_module():
@@ -104,6 +106,30 @@ prods = [bfv.relinearize(m(ctx, ct, ct), evk) for m in
 bfv_ok = all(bfv.decrypt(ctx, sk, p) == (v * v % 257).tolist()
              for p in prods)
 print(bgv_ok, bfv_ok)
+import os, tempfile
+from openfhe_tpu_torch.models import multiparty as mp, pre
+from openfhe_tpu_torch.utils import serial
+ctx = bfv.gen_context(bfv.BFVParams(ring_dim=64, plaintext_modulus=257,
+                                    num_towers=2, mod_size=50, dnum=2), "cpu")
+pk1, s1 = mp.keygen_lead(ctx, rng)
+pk, s2 = mp.keygen_join(ctx, pk1, rng)
+r1 = [mp.evalmult_round1(ctx, s1, rng)]
+r1.append(mp.evalmult_round1(ctx, s2, rng, prev_key=r1[0]))
+ab = mp.evalmult_accumulate_round1(r1)
+evk = mp.evalmult_finalize([mp.evalmult_round2(ctx, s, ab, rng)
+                            for s in (s1, s2)])
+ct = bfv.eval_mult_relin(ctx, bfv.encrypt(ctx, pk, v.tolist(), rng),
+                         bfv.encrypt(ctx, pk, v.tolist(), rng), evk)
+with tempfile.TemporaryDirectory() as d:
+    serial.save(ct, os.path.join(d, "ct"), "json")
+    ct = serial.load(os.path.join(d, "ct"), "cpu")
+parts = [mp.decrypt_lead(ctx, s1, ct, rng), mp.decrypt_main(ctx, s2, ct, rng)]
+mp_ok = mp.combine(ctx, ct, parts) == (v * v % 257).tolist()
+pk3, s3 = bfv.keygen(ctx, rng)
+rk = pre.rekey_gen(ctx, mp.joint_secret(ctx, [s1, s2]), s3, rng)
+moved = pre.re_encrypt(ct, rk, ctx=ctx, pk=pk, mode="FIXED_NOISE_HRA",
+                       rng=rng)
+print(mp_ok, bfv.decrypt(ctx, s3, moved) == (v * v % 257).tolist())
 print(before, "jax" in sys.modules)
 print(sorted(m for m in sys.modules
              if m == "openfhe_tpu" or m.startswith("openfhe_tpu.")))
@@ -115,9 +141,10 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    err, booted, exact, flags, jax_package = \
-        proc.stdout.strip().splitlines()[-5:]
+    err, booted, exact, threshold, flags, jax_package = \
+        proc.stdout.strip().splitlines()[-6:]
     assert exact == "True True", "BGV or BFV did not decrypt exactly"
+    assert threshold == "True True", "threshold or PRE did not decrypt"
     assert float(err) < 1e-6
     towers, boot_err, factors = booted.split()
     assert int(towers) > 3 and float(boot_err) < 5e-2 and factors == "2"
@@ -145,21 +172,35 @@ def test_library_needs_a_card():
         _build.library()
 
 
-def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     """With no device argument the entry points take the current CUDA
     device; without one they raise and name the remedy, and never fall back
-    to the CPU by themselves."""
+    to the CPU by themselves. The threshold and PRE functions take the
+    device of the context they are given."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")
     params = ckks.CKKSParams(ring_dim=64, mult_depth=1)
     zeros = np.zeros((1, 4), dtype=np.uint32)
+    ctx = ckks.gen_context(params, "cpu")
+    rng = np.random.default_rng(3)
+    pk, sk = multiparty.keygen_lead(ctx, rng)
+    ct = ckks.encrypt(ctx, pk, [0.5], rng)
+    serial.save(ct, tmp_path / "ct.npz")
+    assert serial.load(tmp_path / "ct.npz", "cpu").polys[0].device == \
+        ctx.device
+    assert multiparty.keygen_join(ctx, pk, rng)[0].b.device == ctx.device
+    assert multiparty.int_mp_boot_random_element_gen(ctx, rng).device == \
+        ctx.device
+    assert pre.rekey_gen(ctx, sk, sk, rng).b.device == ctx.device
     for call in (lambda: ckks.gen_context(params),
                  lambda: bgv.gen_context(bgv.BGVParams(ring_dim=64)),
                  lambda: bfv.gen_context(bfv.BFVParams(ring_dim=64)),
                  lambda: convert.u64_to_tensor(zeros, zeros),
                  lambda: modular.int_tensor([1, 2]),
                  lambda: modular.make_mod_consts([97]),
-                 lambda: rns.switch_basis_tables((97,), (193,))):
+                 lambda: rns.switch_basis_tables((97,), (193,)),
+                 lambda: serial.load(tmp_path / "ct.npz"),
+                 lambda: convert.ckks_context_from_jax(ctx)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert ckks.gen_context(params, "cpu").device == torch.device("cpu")
