@@ -38,15 +38,25 @@ Phase 14 re-encrypts (PRE) in all three modes for each scheme, phase 15
 saves and loads keys and ciphertexts in both archive flavours, and phase 16
 holds the flows of phases 11-14 at small n on the card equal to the CPU
 run. The kernels are held against their twins at the key shares' shapes
-too. The line before the last is a JSON object with each kernel's launches
-(on the main path, in one bootstrap, in phase 8, in phase 9, in phases 11-13
-and in phase 14), error against its twin, times (L2-warm
+too. Phase 17 runs BINFHE: at STD128 (GINX, N = 1024, n = 503) the keys,
+every 2-input gate over its truth table as one batch, NOT, MAJORITY, AND3,
+OR3, AND4, OR4 and CMUX over every input, a chain of 10 refreshes and a
+public-key encryption switched into a gate; AND and NAND at STD128Q_3 (a
+50-bit Q, N = 2048); AND and OR at STD128_AP (the DM accumulator, its
+4.7 GB key drawn on the host); every decryption exact, the NTT and
+ks_inner_product launched; and TOY and TOY_AP on the card equal to the CPU
+run in every key, output and archive. The kernels are held against their
+twins at one blind-rotation step's shapes too. The line before the last is
+a JSON object with each kernel's launches (on the main path, in one
+bootstrap, in phase 8, in phase 9, in phases 11-13, in phase 14 and in phase
+17), error against its twin, times (L2-warm
 ``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
 least time the card could take for the call; the last line is the JSON
 device summary. There is no CPU path:
 without a CUDA device it exits non-zero.
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -190,12 +200,15 @@ def ntt_bound(rows, towers, n):
                  16 * butterflies + 12 * rows * n)
 
 
-def ks_bound(ndig, rows, n):
-    """ks_inner_product over [ndig, rows, n]: the digits, both key halves and
-    both outputs once; per output a 64x64->128 product a digit (four
-    multiply-adds and four additions to accumulate) and a final reduction of
-    some twenty operations."""
-    return bound(8 * rows * n * (3 * ndig + 2), rows * n * 2 * (8 * ndig + 20))
+def ks_bound(ndig, rows, n, key_rows=None):
+    """ks_inner_product over [ndig, rows, n]: the digits, both key halves
+    (`key_rows` distinct rows of them, default one per output row) and both
+    outputs once; per output a 64x64->128 product a digit (four multiply-adds
+    and four additions to accumulate) and a final reduction of some twenty
+    operations."""
+    key_rows = rows if key_rows is None else key_rows
+    return bound(8 * n * (ndig * rows + 2 * ndig * key_rows + 2 * rows),
+                 rows * n * 2 * (8 * ndig + 20))
 
 
 def fused_mac_bound(rows, n):
@@ -231,15 +244,65 @@ def uniform(moduli, shape, rng, device):
     return torch.from_numpy(arr).to(device)
 
 
+# the batch sizes of phase 17's blind rotations per set: STD128's 2-input
+# gates run 4 at once, MAJORITY/AND3/OR3 8, AND4/OR4 16, CMUX 16 then 8,
+# a refresh 1 and the public-key AND 2; the other sets run 2-input gates
+BINFHE_BATCHES = {"STD128": (1, 2, 4, 8, 16), "STD128Q_3": (4,),
+                  "STD128_AP": (4,)}
+
+
+def binfhe_ntt_cases(binfhe):
+    """(label, moduli, lead, N) of every NTT phase 17 launches: a step's
+    digits [2dg*B, 1, N] forward and halves [2*B, 1, N] back, and key
+    generation's ring secret [1, 1, N] and errors [n*2*2dg, 1, N] (GINX) or
+    n*d_r*B_r*2dg rows in launches of at most NTT_ROWS (AP)."""
+    rows = {}
+    for name, batches in BINFHE_BATCHES.items():
+        p = binfhe.reference_params(name)
+        names, got = rows.setdefault((p.Q, p.N), ([], set()))
+        names.append(name)
+        got.update(r * b for b in batches for r in (2 * p.dg, 2))
+        errs = 2 * p.dg * (p.n_lwe * p.d_r * p.B_r if p.method == "AP"
+                           else 2 * p.n_lwe)
+        got.update({1, *(min(binfhe.NTT_ROWS, errs - s) for s in range(
+            0, errs, binfhe.NTT_ROWS))})
+    return [(f"[{r}, 1, {N}] {Q.bit_length()}-bit BINFHE {'/'.join(names)}",
+             (Q,), (r,), N) for (Q, N), (names, got) in rows.items()
+            for r in sorted(got)]
+
+
+def binfhe_ks_cases(binfhe):
+    """(label, (Q,), N, 2dg, B, key rows, rows) of every ks_inner_product
+    phase 17 launches: GINX digits [2dg, B, N] against the step's slab
+    [2dg, 2, N], every row reading one sign's row; AP against the slab
+    gathered per batch element, [2dg, B, N], row i reading row i."""
+    out = []
+    for name, batches in BINFHE_BATCHES.items():
+        p = binfhe.reference_params(name)
+        for b in batches:
+            shape = f"[{2 * p.dg}, {b}, {p.N}] {p.Q.bit_length()}-bit BINFHE"
+            if p.method == "AP":
+                out.append((f"{shape} {name}, key [{2 * p.dg}, {b}, {p.N}] "
+                            f"gathered", (p.Q,), p.N, 2 * p.dg, b, b,
+                            tuple(range(b))))
+            else:
+                out += [(f"{shape} {name}, key [{2 * p.dg}, 2, {p.N}] sign "
+                         f"{sign}", (p.Q,), p.N, 2 * p.dg, b, 2, (sign,) * b)
+                        for sign in (0, 1)]
+    return out
+
+
 def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
     """Phase 2: each kernel against its twin at the main path's shapes, at
     the bootstrap chain's (45- and 55-bit towers, 60-bit special primes),
     at BGV's and BFV's (n = 2^15: the BFV S = Q∪R basis, BGV's Q∪P with
     primes ≡ 1 mod 2nt, a BV chunk of 15 digits) and at one ring dimension
     that takes the NTT's generic path, and at the key shares of threshold
-    FHE (both halves of every digit at once). Each kernel's summary entry is
+    FHE (both halves of every digit at once), and at every shape phase 17
+    gives them (BINFHE_BATCHES). Each kernel's summary entry is
     its CKKS main-path keyswitch shape's and lists every shape under
     ``shapes``."""
+    from openfhe_tpu_torch.models import binfhe
     from openfhe_tpu_torch.ops import elementwise, modular, ntt
 
     rng = np.random.default_rng(3)
@@ -262,6 +325,7 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
              (f"[6, {len(bgv_qp)}, {nf}] 60-bit BGV QP (key share)", bgv_qp,
               (6,), nf),
              ("[6, 11, 65536] 60-bit QP (key share)", qp, (6,), n),
+             *binfhe_ntt_cases(binfhe),
              ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
     shapes = {name: [] for name in SOURCES}
     for label, moduli, lead, dim in cases:
@@ -298,6 +362,19 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
             lambda: elementwise.ks_inner_product_plain(
                 digits, kb, ka, rows_t, mod), ks_bound(ndig, len(moduli),
                                                        dim)))
+    for label, q, dim, ndig, batch, key_rows, rows in binfhe_ks_cases(
+            binfhe):
+        mod = modular.make_mod_consts(q * batch, device)
+        digits = uniform(q, (ndig, batch, dim), rng, device)[..., 0, :]
+        kb = uniform(q, (ndig, key_rows, dim), rng, device)[..., 0, :]
+        ka = uniform(q, (ndig, key_rows, dim), rng, device)[..., 0, :]
+        rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
+        shapes["ks_inner_product"].insert(-1, compare(
+            f"ks_inner_product {label}",
+            lambda: elementwise.ks_inner_product(digits, kb, ka, rows, mod),
+            lambda: elementwise.ks_inner_product_plain(
+                digits, kb, ka, rows_t, mod),
+            ks_bound(ndig, batch, dim, len(set(rows)))))
     # a key share scales both halves of every digit in one launch: the QP
     # moduli repeated 2 * dnum times
     for label, moduli, dim in (
@@ -1125,6 +1202,187 @@ def threshold_and_pre(ctx60, ctx_bgv, ctx_bfv, device, boot_warm_s):
     return threshold_launches, pre_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: BINFHE gates
+# ---------------------------------------------------------------------------
+
+PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1))
+BOOL_GATES = {"AND": lambda x, y: x & y, "OR": lambda x, y: x | y,
+              "NAND": lambda x, y: 1 - (x & y),
+              "NOR": lambda x, y: 1 - (x | y), "XOR": lambda x, y: x ^ y,
+              "XNOR": lambda x, y: 1 - (x ^ y)}
+MULTI_GATES = {"MAJORITY": lambda v: int(sum(v) >= 2), "AND3": min,
+               "OR3": max, "AND4": min, "OR4": max,
+               "CMUX": lambda v: v[1] if v[2] else v[0]}
+REFRESHES = 10
+# (set, seed, what runs): STD128 runs everything; the wide-Q GINX set and
+# the AP set run two gates each
+BINFHE_RUNS = (("STD128", 61, dict()),
+               ("STD128Q_3", 67, dict(gates=("AND", "NAND"), multi=(),
+                                      refreshes=0, public_key=False)),
+               ("STD128_AP", 71, dict(gates=("AND", "OR"), multi=(),
+                                      refreshes=0, public_key=False)))
+# card against CPU: the same flow, fewer gates
+BINFHE_SMALL = dict(gates=tuple(BOOL_GATES), multi=("MAJORITY", "CMUX"),
+                    refreshes=1)
+
+
+def binfhe_flow(binfhe, ctx, seed, timed, gates=tuple(BOOL_GATES),
+                multi=tuple(MULTI_GATES), refreshes=REFRESHES,
+                public_key=True):
+    """BINFHE through its entry points: keys, each 2-input gate over its
+    truth table as one batch, NOT, the multi-input gates and CMUX over every
+    input, a chain of refreshes and a public-key encryption switched into a
+    gate. Every decryption is held to the plaintext truth. Returns (the
+    secret, the bootstrap key, every tensor, every (b, modulus, bit))."""
+    rng = np.random.default_rng(seed)
+    sk = timed("keygen", lambda: binfhe.keygen(ctx, rng))
+    bk = timed("bootstrap_keygen",
+               lambda: binfhe.bootstrap_keygen(ctx, sk, rng))
+    states = [bk.ek.cpu(), bk.ks_a.cpu(), bk.ks_b.cpu()]
+    outs = []
+
+    def check(label, cts, want):
+        got = [binfhe.decrypt(ctx, sk, c) for c in cts]
+        states.extend(c.a.cpu() for c in cts)
+        outs.extend((c.b, c.modulus, g) for c, g in zip(cts, got))
+        if got != list(want):
+            raise AssertionError(f"BINFHE {label}: decrypted {got}, want "
+                                 f"{list(want)}")
+
+    for gate in gates:
+        c1 = [binfhe.encrypt(ctx, sk, x, rng) for x, _ in PAIRS]
+        c2 = [binfhe.encrypt(ctx, sk, y, rng) for _, y in PAIRS]
+        check(gate, timed(gate, lambda: binfhe.eval_gate_batch(
+            ctx, gate, bk, c1, c2)), [BOOL_GATES[gate](x, y)
+                                      for x, y in PAIRS])
+    if gates:
+        check("NOT", [binfhe.eval_not(ctx, binfhe.encrypt(ctx, sk, x, rng))
+                      for x in (0, 1)], [1, 0])
+    for gate in multi:
+        arity, p = (3, 4) if gate == "CMUX" else \
+            binfhe.MULTI_GATES[gate][:2]
+        combos = list(itertools.product((0, 1), repeat=arity))
+        batches = [[binfhe.encrypt_zp(ctx, sk, v, p, rng) for v in c]
+                   for c in combos]
+        check(gate, timed(gate, lambda: binfhe.eval_gate_vec_batch(
+            ctx, gate, bk, batches)), [MULTI_GATES[gate](c) for c in combos])
+    ct = binfhe.encrypt(ctx, sk, 1, rng)
+    for k in range(refreshes):
+        ct = timed("bootstrap", lambda: binfhe.bootstrap(ctx, bk, ct))
+        check(f"refresh {k + 1}", [ct], [1])
+    if public_key:
+        pk = timed("pubkey_gen", lambda: binfhe.pubkey_gen(ctx, sk, rng))
+        states += [pk.A.cpu(), pk.v.cpu()]
+        big = [timed("encrypt_pk", lambda: binfhe.encrypt_pk(ctx, pk, m, rng))
+               for m in (0, 1)]
+        moved = [timed("switch_ct_to_qn", lambda: binfhe.switch_ct_to_qn(
+            ctx, bk, c)) for c in big]
+        check("switch_ct_to_qn", moved, [0, 1])
+        one = [binfhe.encrypt(ctx, sk, 1, rng) for _ in moved]
+        check("public key -> AND", binfhe.eval_gate_batch(
+            ctx, "AND", bk, moved, one), [0, 1])
+    return sk, bk, states, outs
+
+
+def binfhe_small_states(binfhe, serial, name, device):
+    """Phase 17's card-against-CPU run at a TOY set on `device`: the flow's
+    keys and outputs, then the context, secret, a ciphertext and the
+    bootstrap key saved in both flavours and loaded to the CPU."""
+    ctx = binfhe.gen_context(name, device)
+    sk, bk, states, outs = binfhe_flow(binfhe, ctx, 73, untimed,
+                                       **BINFHE_SMALL)
+    ct = binfhe.encrypt(ctx, sk, 1, np.random.default_rng(5))
+    docs = []
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("binary", "json"):
+            for i, obj in enumerate((ctx, sk, ct, bk)):
+                path = f"{d}/{i}.{fmt}"
+                serial.save(obj, path, fmt)
+                if fmt == "json":
+                    with open(path, "rb") as f:
+                        docs.append(f.read())
+                back = serial.load(path, "cpu")
+                if obj is ct:
+                    states.append(back.a)
+                    outs.append((back.b, back.modulus))
+                elif obj is bk:
+                    states += [back.ek, back.ks_a, back.ks_b]
+                elif obj is sk:
+                    states += [torch.from_numpy(back.s_lwe),
+                               torch.from_numpy(back.z_ring)]
+                else:
+                    outs.append(back.params)
+    return states, outs, docs
+
+
+def binfhe_phase(device):
+    """Phase 17: BINFHE at STD128 (GINX, N = 1024, n = 503) with every gate,
+    STD128Q_3 (50-bit Q, N = 2048) and STD128_AP (DM) with two gates each,
+    every decryption exact and every kernel of the path launched; then TOY
+    and TOY_AP on the card equal to the CPU. Returns the launches."""
+    from openfhe_tpu_torch.models import binfhe
+    from openfhe_tpu_torch.utils import serial
+
+    reset_counters()
+    per_gate = {}
+    for name, seed, kw in BINFHE_RUNS:
+        ctx = binfhe.gen_context(name, device)
+        p = ctx.params
+        times = {}
+        timed = stage_clock(times)
+        sk, bk, _, outs = binfhe_flow(binfhe, ctx, seed, timed, **kw)
+        log(f"  {name} ({p.method}): N={p.N}, n={p.n_lwe}, "
+            f"{p.Q.bit_length()}-bit Q, q={p.q}, q_ks={p.q_ks}, "
+            f"B_g=2^{p.log_bg} (dg={p.dg}), B_ks={p.B_ks} (d_ks={p.d_ks})"
+            + (f", B_r={p.B_r} (d_r={p.d_r})" if p.method == "AP" else "")
+            + f"; bootstrap key {tuple(bk.ek.shape)} "
+            f"{bk.ek.numel() * 8 / 1e6:.1f} MB, key-switch key "
+            f"{tuple(bk.ks_a.shape)} {bk.ks_a.numel() * 8 / 1e6:.1f} MB; "
+            f"{len(outs)} decryptions exact")
+        log_stages(times)
+        # one batched gate (B = 4) alone: its launches and host seconds
+        rng = np.random.default_rng(seed + 1)
+        cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
+        before = read_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        binfhe.eval_gate_batch(ctx, "AND", bk, cts * 2, cts[::-1] * 2)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        per_gate[name] = {k: v - before[k] for k, v in read_counters().items()}
+        log(f"  one batched AND (B = 4): {secs:.4f} s, launches "
+            f"{per_gate[name]}")
+        del bk
+    launches = read_counters()
+    log(f"  launches in phase 17: {launches}")
+    missing = [k for k in ("ntt_forward", "ntt_inverse", "ks_inner_product")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"BINFHE: kernels never launched: {missing}")
+
+    for name in ("TOY", "TOY_AP"):
+        t0 = time.perf_counter()
+        gpu, gpu_out, gpu_docs = binfhe_small_states(binfhe, serial, name,
+                                                     device)
+        t1 = time.perf_counter()
+        cpu, cpu_out, cpu_docs = binfhe_small_states(binfhe, serial, name,
+                                                     torch.device("cpu"))
+        t2 = time.perf_counter()
+        if len(gpu) != len(cpu) or not all(torch.equal(g.cpu(), c)
+                                           for g, c in zip(gpu, cpu)):
+            raise AssertionError(f"BINFHE {name} on the card differs from "
+                                 f"the CPU")
+        if gpu_out != cpu_out or gpu_docs != cpu_docs:
+            raise AssertionError(f"BINFHE {name}: outputs or JSON archives "
+                                 f"differ from the CPU's")
+        log(f"  {name}: {len(gpu)} keys, ciphertexts and loaded archives "
+            f"torch.equal to the CPU run, {len(gpu_out)} outputs and "
+            f"{len(gpu_docs)} JSON archives equal; card {t1 - t0:.1f} s, "
+            f"CPU {t2 - t1:.1f} s")
+    return launches, per_gate
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1189,6 +1447,10 @@ def main():
     threshold_launches, pre_launches = threshold_and_pre(
         ctx60, ctx_bgv, ctx_bfv, device, boot_warm_s)
 
+    log("[17] BINFHE: STD128 gates, STD128Q_3, STD128_AP; TOY on the card "
+        "against the CPU")
+    binfhe_launches, _ = binfhe_phase(device)
+
     kernels = [{"name": name, "route": "cuda",
                 "source": f"openfhe_tpu_torch/{src}", "replaces": rep,
                 "launches": launches[name],
@@ -1196,7 +1458,8 @@ def main():
                 "bgv_launches": bgv_launches[name],
                 "bfv_launches": bfv_launches[name],
                 "threshold_launches": threshold_launches[name],
-                "pre_launches": pre_launches[name], **checks[name]}
+                "pre_launches": pre_launches[name],
+                "binfhe_launches": binfhe_launches[name], **checks[name]}
                for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

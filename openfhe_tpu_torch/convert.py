@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import _build, dcrt, keyswitch
-from .models import bfv, bgv, ckks, ckks_bootstrap
+from .models import bfv, bgv, binfhe, ckks, ckks_bootstrap
 
 
 def u64_to_tensor(lo, hi, device=None) -> torch.Tensor:
@@ -187,3 +187,64 @@ def bfv_ciphertext_to_numpy(ct: bfv.Ciphertext):
 def ckks_context_from_jax(ctx, device=None) -> ckks.CKKSContext:
     return _context_from_jax(ckks.gen_context, ckks.CKKSParams, ctx, device)
 
+
+
+def binfhe_context_from_jax(ctx, device=None) -> binfhe.BinFHEContext:
+    return binfhe.gen_context(
+        binfhe.BinFHEParams(**dataclasses.asdict(ctx.params)), device)
+
+
+def binfhe_secret_from_jax(sk) -> binfhe.BinFHESecret:
+    return binfhe.BinFHESecret(np.asarray(sk.s_lwe, dtype=np.int64).copy(),
+                               np.asarray(sk.z_ring, dtype=np.int64).copy())
+
+
+def binfhe_secret_to_numpy(sk: binfhe.BinFHESecret):
+    """-> (s_lwe, z_ring) for the JAX BinFHESecret."""
+    return sk.s_lwe.copy(), sk.z_ring.copy()
+
+
+def lwe_ciphertext_from_jax(ct, device=None) -> binfhe.LWECiphertext:
+    a = np.asarray(ct.a, dtype=np.int64)
+    return binfhe.LWECiphertext(
+        torch.from_numpy(a.copy()).to(_build.resolve_device(device)),
+        int(ct.b), int(ct.modulus))
+
+
+def lwe_ciphertext_to_numpy(ct: binfhe.LWECiphertext):
+    """-> (a, b, modulus) for the JAX LWECiphertext."""
+    return ct.a.cpu().numpy().astype(np.int64), int(ct.b), int(ct.modulus)
+
+
+def lwe_public_key_from_jax(pk, device=None) -> binfhe.LWEPublicKey:
+    device = _build.resolve_device(device)
+    return binfhe.LWEPublicKey(
+        torch.from_numpy(np.asarray(pk.A, dtype=np.int64).copy()).to(device),
+        torch.from_numpy(np.asarray(pk.v, dtype=np.int64).copy()).to(device))
+
+
+def bootstrap_key_from_arrays(ek_lo, ek_hi, ks_a, ks_b, device=None
+                              ) -> binfhe.BootstrapKey:
+    """The JAX package's BootstrapKey arrays (ek as uint32 planes of
+    [T, V, 2dg, 2, N], ks_a/ks_b int32) -> the port's key: ek int64 with
+    axes 1 and 3 swapped (``models/binfhe.py``), the key-switch key int64."""
+    device = _build.resolve_device(device)
+    ek = u64_to_tensor(ek_lo, ek_hi, device).transpose(1, 3).contiguous()
+
+    def as_int64(x):
+        return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
+
+    return binfhe.BootstrapKey(ek, as_int64(ks_a), as_int64(ks_b))
+
+
+def bootstrap_key_from_jax(bk, device=None) -> binfhe.BootstrapKey:
+    return bootstrap_key_from_arrays(bk.ek_lo, bk.ek_hi, bk.ks_a, bk.ks_b,
+                                     device)
+
+
+def bootstrap_key_to_numpy(bk: binfhe.BootstrapKey):
+    """-> (ek_lo, ek_hi, ks_a, ks_b) in the JAX package's layout and dtypes
+    (uint32 planes of [T, V, 2dg, 2, N]; int32)."""
+    ek_lo, ek_hi = tensor_to_u64(bk.ek.transpose(1, 3).contiguous())
+    return (ek_lo, ek_hi, bk.ks_a.cpu().numpy().astype(np.int32),
+            bk.ks_b.cpu().numpy().astype(np.int32))

@@ -71,7 +71,9 @@ def fused_mac_mod(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor,
 
 
 def ks_inner_product_plain(digits, key_b, key_a, rows, mod: ModConsts):
-    kb, ka = key_b[:, rows], key_a[:, rows]
+    # index_select, not key_b[:, rows]: on the CPU the advanced-indexing
+    # gather along axis 1 takes milliseconds even for a few rows
+    kb, ka = key_b.index_select(1, rows), key_a.index_select(1, rows)
     acc0 = acc1 = None
     for d in range(digits.shape[0]):
         t0 = mul_mod(digits[d], kb[d], mod)

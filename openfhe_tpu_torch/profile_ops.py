@@ -3,9 +3,9 @@ bootstrap goes, on one GPU.
 
     python3 -m openfhe_tpu_torch.profile_ops [ops] [passes] [butterfly]
                                              [bootstrap] [bgv] [bfv]
-                                             [threshold]
+                                             [threshold] [binfhe]
 
-(no argument: all seven sections).
+(no argument: all eight sections).
 
 For EvalMult+relinearize, rescale and EvalRotate at n = 2^16 on the 60-bit
 chain (8 towers + 3 special primes) and on the composite chain (16 towers of
@@ -40,6 +40,15 @@ as the ops above: one party's shares of the joint relinearization and
 rotation keys, the partial decryptions and their fusion, one party's
 interactive-bootstrap share and the lead's final step; and BGV's
 re-encryption in each PRE mode at n = 2^15.
+Then BINFHE at STD128 (GINX, N = 1024, n = 503; chip_smoke.py phase 17):
+the bootstrap key's generation, then one batched AND gate (B = 4) and one
+refresh (B = 1), warm: host latency of 30 runs, a ``torch.profiler`` trace of
+2 more for the device-busy share and the kernels a gate launches, the
+device time of the NTT forward and inverse kernels and of
+``ks_inner_product`` by name, their launch counts from the wrappers, and
+the plain-torch kernels that take the most device time; then one external
+product (B = 4) taken apart into its pieces, each with its kernels, device
+time and host time a call.
 Prints one line per op, per pass, per butterfly and per bootstrap figure
 and a last line of JSON with every number. Needs a CUDA device and nvcc.
 """
@@ -67,9 +76,12 @@ TIMED_RUNS = 30
 PROFILED_RUNS = 10
 HBM_BYTES_PER_S = 3.35e12   # published peak of one H100 SXM
 FLUSH_BYTES = 192 << 20     # several times the 50 MB L2
-# device kernels of csrc/ by the name the profiler shows
-OURS = {"ntt": ("col_pass", "row_pass"),
-        "mac": ("ks_inner_product_kernel", "fused_mac_kernel")}
+# device kernels of csrc/ by the name the profiler shows; the NTT passes
+# carry their direction as the last template argument
+OURS = {"ntt_forward": r"(col|row)_pass\w*<[^>]*true>",
+        "ntt_inverse": r"(col|row)_pass\w*<[^>]*false>",
+        "ks_inner_product": r"ks_inner_product_kernel",
+        "fused_mac": r"fused_mac_kernel"}
 
 
 def _host_times(fn) -> list:
@@ -83,7 +95,11 @@ def _host_times(fn) -> list:
     return out
 
 
-def _profile(fn, runs: int = PROFILED_RUNS) -> dict:
+def _profile(fn, runs: int = PROFILED_RUNS, top: int = 0) -> dict:
+    """Device time a run keeps the card busy, its kernels, and the time of
+    each of OURS by kernel name, from one ``torch.profiler`` trace of
+    `runs` runs; with `top`, also the `top` other (plain torch) kernels by
+    device time, with their launches a run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -91,7 +107,8 @@ def _profile(fn, runs: int = PROFILED_RUNS) -> dict:
             fn()
         torch.cuda.synchronize()
     busy_us, launches = 0.0, 0
-    ours = {k: 0.0 for k in OURS}
+    ours = dict.fromkeys(OURS, 0.0)
+    plain = []
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0.0))
@@ -99,14 +116,26 @@ def _profile(fn, runs: int = PROFILED_RUNS) -> dict:
             continue
         busy_us += dev
         launches += ev.count
-        for group, names in OURS.items():
-            if any(n in ev.key for n in names):
-                ours[group] += dev
+        group = next((k for k, pat in OURS.items()
+                      if re.search(pat, ev.key)), None)
+        if group:
+            ours[group] += dev
+        else:
+            plain.append({"kernel": ev.key, "launches": ev.count / runs,
+                          "us": dev / runs})
     if busy_us <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return {"device_busy_us": busy_us / runs,
-            "kernels_per_op": launches / runs,
-            **{f"{k}_us": v / runs for k, v in ours.items()}}
+    row = {"device_busy_us": busy_us / runs,
+           "kernels_per_op": launches / runs,
+           **{f"{k}_us": v / runs for k, v in ours.items()}}
+    if top:
+        row["plain_top"] = sorted(plain, key=lambda k: -k["us"])[:top]
+    return row
+
+
+def _ours_text(row: dict) -> str:
+    return (f"NTT {row['ntt_forward_us'] + row['ntt_inverse_us']:.1f} us, "
+            f"MAC {row['ks_inner_product_us'] + row['fused_mac_us']:.1f} us")
 
 
 def profile_chain(label: str, composite_degree: int, seed: int) -> list:
@@ -144,8 +173,7 @@ def profile_op_set(label: str, ops: dict) -> list:
         print(f"{label} {name}: host {med:.3f} ms ({q1:.3f}-{q3:.3f}), "
               f"device busy {row['device_busy_us']:.1f} us "
               f"({100 * row['device_busy_share']:.1f}%), "
-              f"{row['kernels_per_op']:.0f} kernels, NTT "
-              f"{row['ntt_us']:.1f} us, MAC {row['mac_us']:.1f} us",
+              f"{row['kernels_per_op']:.0f} kernels, {_ours_text(row)}",
               flush=True)
         rows.append(row)
     return rows
@@ -268,6 +296,142 @@ def profile_threshold() -> list:
             bct, rk, ctx=bctx, pk=pk_a, mode=mode, rng=rng,
             noise_scale=bctx.t))
         for mode in ("INDCPA", "FIXED_NOISE_HRA", "NOISE_FLOODING_HRA")})
+
+
+STEP_RUNS = 1000      # calls of one piece of an external product
+
+
+def _graph_us(fn, reps: int = 100) -> float:
+    """Device microseconds a call of fn takes: `reps` calls captured in one
+    CUDA graph, the replay timed with CUDA events (no host cost counted)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return 1e3 * start.elapsed_time(end) / reps
+
+
+def _binfhe_step_pieces(binfhe, ctx, bk, B: int = 4) -> list:
+    """One CGGI external product at batch B taken apart, each piece on the
+    step's shapes: the host time of a call (STEP_RUNS calls
+    back to back, one synchronise), its device time (CUDA-graph replay)
+    and, for the plain-torch pieces, its kernels (a ``torch.profiler``
+    trace of STEP_RUNS calls). On the card a trace of a few dozen
+    launches of the ported kernels alone came back short or empty, so
+    their launches are the gate trace's."""
+    from .ops import elementwise
+    from .ops.modular import add_mod, mul_mod
+    p = ctx.params
+    rng = np.random.default_rng(5)
+    acc = torch.from_numpy(rng.integers(0, p.Q, size=(2, B, p.N))).to(
+        ctx.device)
+    exps = torch.from_numpy(rng.integers(0, 2 * p.N, size=B)).to(ctx.device)
+    decompose = binfhe._make_signed_decompose(p)
+    mono, mod = binfhe._monomial_table(ctx), binfhe._mod(ctx)
+    row_mod = binfhe._row_mod(ctx, B)
+    dec = decompose(acc)
+    digits = binfhe._ntt_nd(dec, p.Q)
+    ext = elementwise.ks_inner_product(digits, bk.ek[0, 0], bk.ek[0, 1],
+                                       (0,) * B, row_mod)
+    mono_rows = mono[exps]
+    rotated = mul_mod(ext, mono_rows, mod)
+    back = binfhe._ntt_nd(rotated, p.Q, inverse=True)
+    # (piece, call, plain torch?)
+    pieces = (
+        ("signed decomposition", lambda: decompose(acc), True),
+        ("NTT forward", lambda: binfhe._ntt_nd(dec, p.Q), False),
+        ("ks_inner_product", lambda: elementwise.ks_inner_product(
+            digits, bk.ek[0, 0], bk.ek[0, 1], (0,) * B, row_mod), False),
+        ("monomial row gather", lambda: mono[exps], True),
+        ("monomial mul_mod", lambda: mul_mod(ext, mono_rows, mod), True),
+        ("NTT inverse", lambda: binfhe._ntt_nd(rotated, p.Q, inverse=True),
+         False),
+        ("add_mod", lambda: add_mod(acc, back, p.Q), True))
+    rows = []
+    for name, fn, plain in pieces:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEP_RUNS):
+            fn()
+        torch.cuda.synchronize()
+        row = {"piece": name,
+               "host_us": 1e6 * (time.perf_counter() - t0) / STEP_RUNS,
+               "device_us": _graph_us(fn)}
+        if plain:
+            row["kernels"] = _profile(fn, runs=STEP_RUNS)["kernels_per_op"]
+        rows.append(row)
+        print(f"BINFHE STD128 external product (B = {B}), {name}: "
+              + (f"{row['kernels']:.1f} kernels, " if plain else "")
+              + f"device {row['device_us']:.1f} us, host "
+              f"{row['host_us']:.1f} us a call", flush=True)
+    return rows
+
+
+def profile_binfhe() -> dict:
+    """BINFHE at STD128 (chip_smoke.py phase 17): bootstrap-key generation
+    once, then a batched AND (B = 4) and a refresh (B = 1), warm, with the
+    launches of each wrapper, the device time of each kernel and the plain
+    kernels that take the most device time; then one external product taken
+    apart."""
+    from .models import binfhe
+    from .ops import elementwise
+    ctx = binfhe.gen_context("STD128")
+    rng = np.random.default_rng(61)
+    sk = binfhe.keygen(ctx, rng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bk = binfhe.bootstrap_keygen(ctx, sk, rng)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    print(f"BINFHE STD128 bootstrap_keygen: {keygen_s:.3f} s (key "
+          f"{tuple(bk.ek.shape)}, key switch {tuple(bk.ks_a.shape)})",
+          flush=True)
+    cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
+    wrappers = {"ntt_forward": ntt.forward, "ntt_inverse": ntt.inverse,
+                "ks_inner_product": elementwise.ks_inner_product}
+    rows = []
+    for name, fn in (
+            ("AND, B = 4", lambda: binfhe.eval_gate_batch(
+                ctx, "AND", bk, cts * 2, cts[::-1] + cts)),
+            ("refresh, B = 1", lambda: binfhe.bootstrap(ctx, bk, cts[1]))):
+        fn()
+        before = {k: w.launches for k, w in wrappers.items()}
+        fn()
+        launches = {f"{k}_launches": w.launches - before[k]
+                    for k, w in wrappers.items()}
+        ms = _host_times(fn)
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        row = {"op": f"BINFHE STD128 {name}", "host_ms_median": float(med),
+               "host_ms_q1": float(q1), "host_ms_q3": float(q3),
+               "bootstrap_keygen_s": keygen_s, **launches,
+               **_profile(fn, runs=2, top=12)}
+        row["device_busy_share"] = row["device_busy_us"] / (1e3 * med)
+        print(f"BINFHE STD128 {name}: host {med:.3f} ms ({q1:.3f}-{q3:.3f}),"
+              f" device busy {row['device_busy_us']:.1f} us "
+              f"({100 * row['device_busy_share']:.1f}%), "
+              f"{row['kernels_per_op']:.0f} kernels; NTT forward "
+              f"{launches['ntt_forward_launches']} launches "
+              f"{row['ntt_forward_us']:.1f} us, inverse "
+              f"{launches['ntt_inverse_launches']} launches "
+              f"{row['ntt_inverse_us']:.1f} us, ks_inner_product "
+              f"{launches['ks_inner_product_launches']} launches "
+              f"{row['ks_inner_product_us']:.1f} us", flush=True)
+        for k in row["plain_top"]:
+            print(f"  plain kernel {k['launches']:.0f} launches "
+                  f"{k['us']:.1f} us: {k['kernel'][:150]}", flush=True)
+        rows.append(row)
+    return {"gates": rows, "step_pieces": _binfhe_step_pieces(binfhe, ctx,
+                                                              bk)}
 
 
 def profile_ntt_passes(label: str, moduli: tuple, lead: tuple) -> list:
@@ -419,8 +583,8 @@ def profile_bootstrap() -> dict:
           f"(runs {', '.join(f'{m:.1f}' for m in ms)}), device busy "
           f"{row['device_busy_us'] / 1e3:.1f} ms "
           f"({100 * row['device_busy_share']:.1f}%), "
-          f"{row['kernels_per_op']:.0f} kernels, NTT "
-          f"{row['ntt_us']:.1f} us, MAC {row['mac_us']:.1f} us", flush=True)
+          f"{row['kernels_per_op']:.0f} kernels, {_ours_text(row)}",
+          flush=True)
     print(f"bootstrap encoding: {encodes} plaintexts; in a run of "
           f"{timed_ms:.1f} ms, ckks_encode {row['ckks_encode_ms']:.1f} ms + "
           f"signed_to_rns_rows {row['signed_to_rns_rows_ms']:.1f} ms on the "
@@ -432,7 +596,7 @@ def profile_bootstrap() -> dict:
 
 
 SECTIONS = ("ops", "passes", "butterfly", "bootstrap", "bgv", "bfv",
-            "threshold")
+            "threshold", "binfhe")
 
 
 def main() -> None:
@@ -470,6 +634,8 @@ def main() -> None:
         out["bfv"] = profile_bfv()
     if "threshold" in wanted:
         out["threshold"] = profile_threshold()
+    if "binfhe" in wanted:
+        out["binfhe"] = profile_binfhe()
     print(json.dumps(out), flush=True)
 
 

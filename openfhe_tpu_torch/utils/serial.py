@@ -1,4 +1,4 @@
-"""Archives of contexts, keys and ciphertexts of the three RNS schemes.
+"""Archives of contexts, keys and ciphertexts of the RNS schemes and BINFHE.
 
 The port's copy of ``openfhe_tpu/utils/serial.py`` and of its format, so
 that a file written by either package loads in the other (role of the
@@ -17,8 +17,11 @@ A 64-bit residue tensor is stored as the JAX package stores it, as two
 ``device`` (None: the current CUDA device, raising without one).
 
 Like the JAX package, ``load`` builds a BFV ciphertext with the default
-noise degree 1: the archive does not carry it. The BINFHE kinds are not
-ported yet and raise a ``TypeError``.
+noise degree 1: the archive does not carry it. A BINFHE bootstrap key is
+stored in the JAX package's layout and dtypes (``ek_lo``/``ek_hi`` uint32
+planes of ``[T, V, 2dg, 2, N]``, ``ks_a``/``ks_b`` int32), whatever layout
+the port keeps it in. LMKCDEY keys are not ported yet: their archives raise
+a ``TypeError``.
 """
 
 from __future__ import annotations
@@ -30,21 +33,14 @@ import json
 from typing import Any
 
 import numpy as np
+import torch
 
 from .. import _build, dcrt, keyswitch
-from ..convert import tensor_to_u64, u64_to_tensor
-from ..models import bfv, bgv, ckks
+from ..convert import (bootstrap_key_from_arrays, bootstrap_key_to_numpy,
+                       tensor_to_u64, u64_to_tensor)
+from ..models import bfv, bgv, binfhe, ckks
 
 SERIAL_VERSION = 1
-BINFHE_KINDS = ("binfhe_context", "lwe_ciphertext", "binfhe_secret",
-                "binfhe_bootstrap_key", "binfhe_lmkcdey_key")
-_BINFHE_TYPES = ("BinFHEContext", "LWECiphertext", "BinFHESecret",
-                 "BootstrapKey", "LMKCDEYKey")
-
-
-def _binfhe_not_ported(what: str) -> TypeError:
-    return TypeError(f"{what}: BINFHE is not ported to openfhe_tpu_torch "
-                     f"yet; its archives cannot be written or read here")
 
 
 def _array_to_json(a: np.ndarray) -> dict:
@@ -78,7 +74,8 @@ def _moduli(ms) -> list:
 
 def save(obj: Any, path, fmt: str = "binary") -> None:
     """Write `obj` (a context, ciphertext, PublicKey, SecretKey or KSKey of
-    the port) to `path` in the JAX package's archive format."""
+    the port, or a BINFHE context, LWE ciphertext, secret or bootstrap key)
+    to `path` in the JAX package's archive format."""
     assert fmt in ("binary", "json"), fmt
     arrays: dict = {}
     meta: dict = {"version": SERIAL_VERSION}
@@ -121,8 +118,21 @@ def save(obj: Any, path, fmt: str = "binary") -> None:
                                "plaintext_correction": p.plaintext_correction})
         arrays["b_lo"], arrays["b_hi"] = tensor_to_u64(obj.b)
         arrays["a_lo"], arrays["a_hi"] = tensor_to_u64(obj.a)
-    elif t in _BINFHE_TYPES:
-        raise _binfhe_not_ported(f"cannot serialize {t}")
+    elif t == "BinFHEContext":
+        meta.update(kind="binfhe_context",
+                    params=dataclasses.asdict(obj.params))
+    elif t == "LWECiphertext":
+        meta.update(kind="lwe_ciphertext", b=int(obj.b),
+                    modulus=int(obj.modulus))
+        arrays["a"] = obj.a.cpu().numpy().astype(np.int64)
+    elif t == "BinFHESecret":
+        meta.update(kind="binfhe_secret")
+        arrays["s_lwe"] = np.asarray(obj.s_lwe, dtype=np.int64)
+        arrays["z_ring"] = np.asarray(obj.z_ring, dtype=np.int64)
+    elif t == "BootstrapKey":
+        meta.update(kind="binfhe_bootstrap_key")
+        arrays.update(zip(("ek_lo", "ek_hi", "ks_a", "ks_b"),
+                          bootstrap_key_to_numpy(obj)))
     else:
         raise TypeError(f"don't know how to serialize {mod}.{t}")
 
@@ -154,8 +164,9 @@ def load(path, device=None) -> Any:
         meta = json.loads(bytes(arrays.pop("__meta__")).decode())
     assert meta["version"] <= SERIAL_VERSION, "newer serial format"
     kind = meta["kind"]
-    if kind in BINFHE_KINDS:
-        raise _binfhe_not_ported(f"cannot load a {kind} archive")
+    if kind == "binfhe_lmkcdey_key":
+        raise TypeError("cannot load a binfhe_lmkcdey_key archive: LMKCDEY "
+                        "is not ported to openfhe_tpu_torch yet")
     device = _build.resolve_device(device)
     if kind in ("ckks_context", "bgv_context"):
         ctx_type, params_type = (
@@ -190,4 +201,18 @@ def load(path, device=None) -> Any:
         return keyswitch.KSKey(
             u64_to_tensor(arrays["b_lo"], arrays["b_hi"], device),
             u64_to_tensor(arrays["a_lo"], arrays["a_hi"], device), params)
+    if kind == "binfhe_context":
+        return binfhe.BinFHEContext(binfhe.BinFHEParams(**meta["params"]),
+                                    device)
+    if kind == "lwe_ciphertext":
+        return binfhe.LWECiphertext(
+            torch.from_numpy(np.asarray(arrays["a"], dtype=np.int64)).to(
+                device), int(meta["b"]), int(meta["modulus"]))
+    if kind == "binfhe_secret":
+        return binfhe.BinFHESecret(np.asarray(arrays["s_lwe"], np.int64),
+                                   np.asarray(arrays["z_ring"], np.int64))
+    if kind == "binfhe_bootstrap_key":
+        return bootstrap_key_from_arrays(arrays["ek_lo"], arrays["ek_hi"],
+                                         arrays["ks_a"], arrays["ks_b"],
+                                         device)
     raise TypeError(f"unknown serialized kind {kind}")

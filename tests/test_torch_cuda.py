@@ -220,3 +220,79 @@ def test_threshold_pre_and_archives_on_the_card_equal_the_cpu(cuda):
     assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
     assert np.array_equal(gpu_slots, cpu_slots)
     assert np.max(np.abs(gpu_slots.real - v * v)) < 1e-4
+
+
+def _binfhe_q(name):
+    from openfhe_tpu_torch.models import binfhe
+    return binfhe.reference_params(name).Q
+
+
+# the NTT shapes of chip_smoke.py phase 17: a step's digits [2dg*B, 1, N]
+# and halves [2*B, 1, N] at B = 1, 2, 4, 8, 16 (STD128; STD128_AP runs its
+# B = 4 at the same Q and N) and B = 4 (STD128Q_3), the ring secret and the
+# GINX key's errors
+@pytest.mark.parametrize("name,rows,n", [
+    *[("STD128", r, 1024) for r in (1, 2, 4, 6, 8, 12, 16, 24, 32, 48, 96,
+                                    6036)],
+    *[("STD128Q_3", r, 2048) for r in (1, 8, 16, 4600)]])
+def test_ntt_kernel_at_binfhe_shapes(cuda, name, rows, n):
+    """Blind rotation's and key generation's NTTs: one 27- or 50-bit
+    modulus (the generic radix-2 kernels)."""
+    moduli = (_binfhe_q(name),)
+    x = _uniform(moduli, (rows, n), seed=rows + n)
+    t_cpu = ntt.tables(n, moduli, "cpu")
+    got = ntt.forward(x.to(cuda), moduli)
+    assert torch.equal(got.cpu(), ntt.forward_plain(x, t_cpu))
+    back = ntt.inverse(got, moduli)
+    assert torch.equal(back.cpu(), x)
+
+
+@pytest.mark.parametrize("name,ndig,n,batch,key_rows,rows", [
+    *[("STD128", 6, 1024, b, 2, (sign,) * b) for b in (1, 2, 4, 8, 16)
+      for sign in (0, 1)],
+    *[("STD128Q_3", 4, 2048, 4, 2, (sign,) * 4) for sign in (0, 1)],
+    ("STD128_AP", 6, 1024, 4, 4, (0, 1, 2, 3))])
+def test_ks_inner_product_at_binfhe_shapes(cuda, name, ndig, n, batch,
+                                           key_rows, rows):
+    """One external product: digits [2dg, B, N] against the GINX step's
+    slab [2dg, 2 signs, N], every row reading one sign's row, or against the
+    AP step's slab gathered per batch element, row i reading row i."""
+    moduli = (_binfhe_q(name),)
+    digits = _uniform(moduli, (ndig, batch, n), seed=1)[..., 0, :]
+    kb = _uniform(moduli, (ndig, key_rows, n), seed=2)[..., 0, :]
+    ka = _uniform(moduli, (ndig, key_rows, n), seed=3)[..., 0, :]
+    want = elementwise.ks_inner_product(
+        digits, kb, ka, rows, modular.make_mod_consts(moduli * batch, "cpu"))
+    got = elementwise.ks_inner_product(
+        digits.to(cuda), kb.to(cuda), ka.to(cuda), rows,
+        modular.make_mod_consts(moduli * batch, cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["TOY", "TOY_AP"])
+def test_binfhe_on_the_card_equals_the_cpu(cuda, name):
+    """gen_context(name) lands on the current CUDA device; the bootstrap key,
+    a batched gate, a refresh and the public-key path there equal the CPU
+    run's."""
+    from openfhe_tpu_torch.models import binfhe
+    assert binfhe.gen_context(name).device.type == "cuda"
+    runs = []
+    for device in (cuda, "cpu"):
+        ctx = binfhe.gen_context(name, device)
+        rng = np.random.default_rng(7)
+        sk = binfhe.keygen(ctx, rng)
+        bk = binfhe.bootstrap_keygen(ctx, sk, rng)
+        cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
+        outs = binfhe.eval_gate_batch(ctx, "NAND", bk, cts * 2,
+                                      cts[::-1] + cts)
+        outs.append(binfhe.bootstrap(ctx, bk, outs[0]))
+        pk = binfhe.pubkey_gen(ctx, sk, rng)
+        outs.append(binfhe.switch_ct_to_qn(
+            ctx, bk, binfhe.encrypt_pk(ctx, pk, 1, rng)))
+        runs.append(([bk.ek.cpu(), bk.ks_a.cpu(), bk.ks_b.cpu()]
+                     + [o.a.cpu() for o in outs],
+                     [(o.b, binfhe.decrypt(ctx, sk, o)) for o in outs]))
+    (gpu, gpu_out), (cpu, cpu_out) = runs
+    assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
+    assert gpu_out == cpu_out
+    assert [bit for _, bit in cpu_out] == [1, 1, 1, 0, 1, 1]

@@ -1,6 +1,7 @@
 """The port stands apart from JAX: no module of ``openfhe_tpu_torch`` imports
 jax or anything of ``openfhe_tpu``, the slices (the CKKS main path, the
-bootstrap, BGV and BFV, threshold FHE, PRE and the archives) run on the CPU
+bootstrap, BGV and BFV, threshold FHE, PRE, the archives and BINFHE) run
+on the CPU
 (when asked to) without loading either, and the CUDA-only paths raise
 instead of falling back when they get what they do not take or find no
 card.
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from openfhe_tpu_torch import _build, convert
-from openfhe_tpu_torch.models import bfv, bgv, ckks, multiparty, pre
+from openfhe_tpu_torch.models import bfv, bgv, binfhe, ckks, multiparty, pre
 from openfhe_tpu_torch.ops import modular, ntt, rns
 from openfhe_tpu_torch.utils import serial
 
@@ -40,7 +41,8 @@ def _imports(path: Path):
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 SLICE_MODULES = ["ckks.py", "ckks_advanced.py", "ckks_bootstrap.py",
                  "ckks_fft.py", "bgv.py", "bfv.py", "rns.py", "keyswitch.py",
-                 "encoding.py", "multiparty.py", "pre.py", "serial.py"]
+                 "encoding.py", "multiparty.py", "pre.py", "serial.py",
+                 "binfhe.py"]
 
 
 def test_guard_covers_every_slice_module():
@@ -130,6 +132,13 @@ rk = pre.rekey_gen(ctx, mp.joint_secret(ctx, [s1, s2]), s3, rng)
 moved = pre.re_encrypt(ct, rk, ctx=ctx, pk=pk, mode="FIXED_NOISE_HRA",
                        rng=rng)
 print(mp_ok, bfv.decrypt(ctx, s3, moved) == (v * v % 257).tolist())
+from openfhe_tpu_torch.models import binfhe
+ctx = binfhe.gen_context("TOY", "cpu")
+sk = binfhe.keygen(ctx, rng)
+bk = binfhe.bootstrap_keygen(ctx, sk, rng)
+cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
+outs = binfhe.eval_gate_batch(ctx, "XOR", bk, cts * 2, cts[::-1] + cts)
+print([binfhe.decrypt(ctx, sk, o) for o in outs])
 print(before, "jax" in sys.modules)
 print(sorted(m for m in sys.modules
              if m == "openfhe_tpu" or m.startswith("openfhe_tpu.")))
@@ -141,10 +150,11 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    err, booted, exact, threshold, flags, jax_package = \
-        proc.stdout.strip().splitlines()[-6:]
+    err, booted, exact, threshold, gates, flags, jax_package = \
+        proc.stdout.strip().splitlines()[-7:]
     assert exact == "True True", "BGV or BFV did not decrypt exactly"
     assert threshold == "True True", "threshold or PRE did not decrypt"
+    assert gates == "[1, 1, 0, 0]", "the BINFHE XOR gates did not decrypt"
     assert float(err) < 1e-6
     towers, boot_err, factors = booted.split()
     assert int(towers) > 3 and float(boot_err) < 5e-2 and factors == "2"
@@ -195,6 +205,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     for call in (lambda: ckks.gen_context(params),
                  lambda: bgv.gen_context(bgv.BGVParams(ring_dim=64)),
                  lambda: bfv.gen_context(bfv.BFVParams(ring_dim=64)),
+                 lambda: binfhe.gen_context("TOY"),
                  lambda: convert.u64_to_tensor(zeros, zeros),
                  lambda: modular.int_tensor([1, 2]),
                  lambda: modular.make_mod_consts([97]),
