@@ -46,10 +46,22 @@ public-key encryption switched into a gate; AND and NAND at STD128Q_3 (a
 4.7 GB key drawn on the host); every decryption exact, the NTT and
 ks_inner_product launched; and TOY and TOY_AP on the card equal to the CPU
 run in every key, output and archive. The kernels are held against their
-twins at one blind-rotation step's shapes too. The line before the last is
+twins at one blind-rotation step's shapes too. Phase 18 runs the
+large-precision functions at STD128 (eval_floor within 2 beta, eval_sign_large
+exact, eval_decomp, eval_sign over Z_8; input modulus q_ks, beta = 64) and
+LMKCDEY at STD128_LMKCDEY (keys, AND, OR, XOR and NAND over their truth
+tables, a refresh of 0 and of 1, one eval_func), each op's host seconds and
+launches logged. Phase 19 runs CKKS <-> FHEW scheme switching with the CKKS
+side at n = 2^16 (examples/scheme_switching.py's parameters: setup, keys,
+CKKS -> FHEW, FHEW -> CKKS, compare, min/max and their _alt forms), each
+flow held to the JAX tests' bounds against what its LWE inputs encrypt (the
+CKKS -> FHEW samples' noise at this ring is logged), and phase 20 holds
+TOY_LP, TOY_LMKCDEY (with the LMKCDEY key's archives) and scheme switching
+at n = 512 on the card equal to the CPU run, every flow at n = 512 within
+the JAX tests' bounds against the plaintext. The line before the last is
 a JSON object with each kernel's launches (on the main path, in one
-bootstrap, in phase 8, in phase 9, in phases 11-13, in phase 14 and in phase
-17), error against its twin, times (L2-warm
+bootstrap, in phase 8, in phase 9, in phases 11-13, in phase 14, in phase
+17, in phase 18 and in phase 19), error against its twin, times (L2-warm
 ``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
 least time the card could take for the call; the last line is the JSON
 device summary. There is no CPU path:
@@ -244,24 +256,36 @@ def uniform(moduli, shape, rng, device):
     return torch.from_numpy(arr).to(device)
 
 
-# the batch sizes of phase 17's blind rotations per set: STD128's 2-input
-# gates run 4 at once, MAJORITY/AND3/OR3 8, AND4/OR4 16, CMUX 16 then 8,
-# a refresh 1 and the public-key AND 2; the other sets run 2-input gates
+# the batch sizes of the blind rotations of phases 17-19 per set: STD128's
+# 2-input gates run 4 at once, MAJORITY/AND3/OR3 8, AND4/OR4 16, CMUX 16
+# then 8, a refresh, a large-precision op and a LUT 1, the public-key AND
+# 2; STD128Q_3 and STD128_AP run 2-input gates; LMKCDEY rotates one
+# ciphertext at a time; scheme switching's FHEW set one LUT at a time
 BINFHE_BATCHES = {"STD128": (1, 2, 4, 8, 16), "STD128Q_3": (4,),
-                  "STD128_AP": (4,)}
+                  "STD128_AP": (4,), "STD128_LMKCDEY": (1,),
+                  "switch FHEW": (1,)}
+
+
+def binfhe_sets(binfhe):
+    return [(name, switch_fhew_params(binfhe) if name == "switch FHEW"
+             else binfhe.reference_params(name), batches)
+            for name, batches in BINFHE_BATCHES.items()]
 
 
 def binfhe_ntt_cases(binfhe):
-    """(label, moduli, lead, N) of every NTT phase 17 launches: a step's
-    digits [2dg*B, 1, N] forward and halves [2*B, 1, N] back, and key
-    generation's ring secret [1, 1, N] and errors [n*2*2dg, 1, N] (GINX) or
-    n*d_r*B_r*2dg rows in launches of at most NTT_ROWS (AP)."""
+    """(label, moduli, lead, N) of every NTT phases 17-19 launch: a step's
+    digits [2dg*B, 1, N] forward and halves [2*B, 1, N] back (LMKCDEY's
+    automorphism step: digits [dg, 1, N]), and key generation's ring secret
+    [1, 1, N] and errors: [n*2*2dg, 1, N] (GINX), n*d_r*B_r*2dg rows in
+    launches of at most NTT_ROWS (AP), [n*2dg] and [dg] (LMKCDEY)."""
     rows = {}
-    for name, batches in BINFHE_BATCHES.items():
-        p = binfhe.reference_params(name)
+    for name, p, batches in binfhe_sets(binfhe):
         names, got = rows.setdefault((p.Q, p.N), ([], set()))
         names.append(name)
         got.update(r * b for b in batches for r in (2 * p.dg, 2))
+        if p.method == "LMKCDEY":
+            got.update({1, p.dg, 2 * p.dg * p.n_lwe})
+            continue
         errs = 2 * p.dg * (p.n_lwe * p.d_r * p.B_r if p.method == "AP"
                            else 2 * p.n_lwe)
         got.update({1, *(min(binfhe.NTT_ROWS, errs - s) for s in range(
@@ -273,12 +297,19 @@ def binfhe_ntt_cases(binfhe):
 
 def binfhe_ks_cases(binfhe):
     """(label, (Q,), N, 2dg, B, key rows, rows) of every ks_inner_product
-    phase 17 launches: GINX digits [2dg, B, N] against the step's slab
+    phases 17-19 launch: GINX digits [2dg, B, N] against the step's slab
     [2dg, 2, N], every row reading one sign's row; AP against the slab
-    gathered per batch element, [2dg, B, N], row i reading row i."""
+    gathered per batch element, [2dg, B, N], row i reading row i; LMKCDEY
+    digits [2dg, 1, N] against ek[j]'s [2dg, 1, N] and [dg, 1, N] against
+    an automorphism key's."""
     out = []
-    for name, batches in BINFHE_BATCHES.items():
-        p = binfhe.reference_params(name)
+    for name, p, batches in binfhe_sets(binfhe):
+        if p.method == "LMKCDEY":
+            out += [(f"[{d}, 1, {p.N}] {p.Q.bit_length()}-bit BINFHE {name}, "
+                     f"key [{d}, 1, {p.N}] ({what})", (p.Q,), p.N, d, 1, 1,
+                     (0,)) for d, what in ((2 * p.dg, "ek row"),
+                                           (p.dg, "automorphism key"))]
+            continue
         for b in batches:
             shape = f"[{2 * p.dg}, {b}, {p.N}] {p.Q.bit_length()}-bit BINFHE"
             if p.method == "AP":
@@ -292,14 +323,16 @@ def binfhe_ks_cases(binfhe):
     return out
 
 
-def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
+def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
     """Phase 2: each kernel against its twin at the main path's shapes, at
     the bootstrap chain's (45- and 55-bit towers, 60-bit special primes),
     at BGV's and BFV's (n = 2^15: the BFV S = Q∪R basis, BGV's Q∪P with
     primes ≡ 1 mod 2nt, a BV chunk of 15 digits) and at one ring dimension
     that takes the NTT's generic path, and at the key shares of threshold
-    FHE (both halves of every digit at once), and at every shape phase 17
-    gives them (BINFHE_BATCHES). Each kernel's summary entry is
+    FHE (both halves of every digit at once), at every BINFHE shape phases
+    17-19 give them (BINFHE_BATCHES) and at scheme switching's CKKS chain
+    (phase 19: 14 towers + 5 special primes, dnum 3). Each kernel's summary
+    entry is
     its CKKS main-path keyswitch shape's and lists every shape under
     ``shapes``."""
     from openfhe_tpu_torch.models import binfhe
@@ -312,6 +345,8 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
     bqp = bq + ctx_boot.p_moduli
     s_basis = ctx_bfv.q_moduli + ctx_bfv.r_moduli
     bgv_qp = ctx_bgv.q_moduli + ctx_bgv.p_moduli
+    swqp = ctx_sw.q_moduli + ctx_sw.p_moduli
+    sw_label = f"[3, {len(swqp)}, 65536] 35/51/60-bit scheme-switching QP"
     cases = [("[8, 65536] 60-bit", ctx60.q_moduli, (), n),
              ("[16, 65536] 30-bit", ctx30.q_moduli, (), n),
              ("[1, 65536] 60-bit", ctx60.q_moduli[-1:], (), n),
@@ -326,6 +361,7 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
               (6,), nf),
              ("[6, 11, 65536] 60-bit QP (key share)", qp, (6,), n),
              *binfhe_ntt_cases(binfhe),
+             (sw_label, swqp, (3,), n),
              ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
     shapes = {name: [] for name in SOURCES}
     for label, moduli, lead, dim in cases:
@@ -349,6 +385,7 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
             (f"[3, {len(bgv_qp)}, {nf}] 60-bit BGV QP", bgv_qp, 3, nf),
             (f"[15, {len(bfv_q)}, {nf}] 60-bit BV chunk of 15 digits", bfv_q,
              15, nf),
+            (sw_label, swqp, 3, n),
             ("[3, 11, 65536] 60-bit QP", qp, 3, n)):
         mod = modular.make_mod_consts(moduli, device)
         digits = uniform(moduli, (ndig, dim), rng, device)
@@ -383,6 +420,8 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device):
             (f"[{6 * len(bgv_qp)}, {nf}] 60-bit BGV QP x 6 (key share)",
              bgv_qp * 6, nf),
             (f"[{6 * len(qp)}, 65536] 60-bit QP x 6 (key share)", qp * 6, n),
+            (f"[{len(ctx_sw.q_moduli)}, 65536] 35/51-bit scheme-switching Q",
+             ctx_sw.q_moduli, n),
             ("[11, 65536] 60-bit QP", qp, n)):
         mod = modular.make_mod_consts(moduli, device)
         x, y, acc = (uniform(moduli, (dim,), rng, device) for _ in range(3))
@@ -587,16 +626,21 @@ def bootstrap_against_cpu(ckks, boot):
         f"{t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
 
 
-def stage_clock(times):
+def stage_clock(times, launches=None):
     """timed(name, fn) as ``stage_timer``'s, but every call's seconds are
-    kept, in order, in the list ``times[name]``."""
+    kept, in order, in the list ``times[name]``; given a dict `launches`,
+    the launches of each call too, in ``launches[name]``."""
 
     def timed(name, fn):
+        before = read_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         times.setdefault(name, []).append(time.perf_counter() - t0)
+        if launches is not None:
+            launches.setdefault(name, []).append(
+                {k: v - before[k] for k, v in read_counters().items()})
         return out
 
     return timed
@@ -754,10 +798,14 @@ def bfv_run(bfv, keyswitch, ctx, seed, levels, timed):
     return states, outs
 
 
-def log_stages(times):
+def log_stages(times, launches=None):
     log("  stage seconds (calls: first, median): " + ", ".join(
         f"{k} x{len(v)}: {v[0]:.4f}, {float(np.median(v)):.4f}"
         for k, v in times.items()))
+    if launches:
+        log("  launches a call (median): " + "; ".join(
+            f"{k} {({w: int(np.median([c[w] for c in v])) for w in v[0]})}"
+            for k, v in launches.items()))
 
 
 def host_codec_times(ctx, rng):
@@ -1383,6 +1431,395 @@ def binfhe_phase(device):
     return launches, per_gate
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-20: the rest of BINFHE (large precision, LMKCDEY) and CKKS <->
+# FHEW scheme switching
+# ---------------------------------------------------------------------------
+
+LP_BETA = 64                       # tests/test_binfhe.py:136-176
+LP_FLOORS = (1000, 5000, 12345)
+LP_SIGNS = (100, 7000, 9000, 16000)
+LP_DECOMP = 12345
+P_MSG = 8
+LUT = (0, 1, 2, 3, 0, 7, 6, 5)     # negacyclic over Z_8
+SIGN_LUT = (0, 1, 1, 1, 0, 7, 7, 7)  # eval_sign's table at p = 8
+LMK_GATES = ("AND", "OR", "XOR", "NAND")
+LP_SET, LMK_SET = "STD128", "STD128_LMKCDEY"   # phase 18
+LP_SEED = 81
+# The JAX package's decryptions of lp_flow at STD128 for LP_SEED (jitted on
+# the CPU by tests/test_torch_binfhe_lp.py, which holds them to these):
+# eval_floor(5000) and eval_sign_large(7000) miss the JAX test's bounds in
+# the JAX package too (ROADMAP Queue 3), so phase 18 holds the port to them
+LP_REFERENCE = {"STD128": {
+    "eval_floor": [100, 6473, 12316], "eval_sign_large": [0, 1, 1, 1],
+    "eval_decomp": [60, 764], "eval_sign": [0, 1, 1, 1, 0, 7, 7, 7]}}
+# Phase 19: the CKKS parameters of examples/scheme_switching.py:22-23 at
+# ring 2^16 and its FHEW set (:15-17), the only FHEW width the JAX
+# package's scheme switching runs
+SWITCH_CKKS = dict(mult_depth=13, scaling_mod_size=35, first_mod_size=50,
+                   dnum=3, secret_hw=64)
+SWITCH_SETUP = dict(slots=8, cheb_deg=56)
+SWITCH_SMALL_RING = 512            # phase 20, tests/test_scheme_switch.py's
+SWITCH_BITS = (0, 1, 1, 0, 1, 0, 0, 1)
+SWITCH_V1 = (3, 1, 2, 0, 3, 2, 1, 1)
+SWITCH_V2 = (1, 3, 0, 2, 1, 3, 3, 2)
+# the JAX tests' decode bounds (tests/test_scheme_switch.py)
+F2C_BOUND, COMPARE_BOUND, MINMAX_BOUND, ALT_BOUND = 0.12, 0.12, 0.15, 0.2
+
+
+def need(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def lp_flow(binfhe, ctx, seed, timed, floors=LP_FLOORS, signs=LP_SIGNS,
+            sign_msgs=tuple(range(P_MSG))):
+    """The large-precision functions at a GINX set, input modulus q_ks,
+    beta = 64: eval_floor, eval_sign_large, eval_decomp and eval_sign over
+    Z_8, through either package's module (the port's here; the JAX
+    package's in tests/test_torch_binfhe_lp.py, untimed). Returns (the
+    bootstrap key, the output ciphertexts, the decryptions by op, the
+    decryptions that miss the JAX test's bound: eval_floor within 2 beta,
+    eval_sign_large exact, eval_decomp at least 2 digits, the first within 16
+    of v mod 2N, eval_sign exact)."""
+    rng = np.random.default_rng(seed)
+    p = ctx.params
+    q, mod = 2 * p.N, p.q_ks
+    sk = binfhe.keygen(ctx, rng)
+    bk = timed("bootstrap_keygen", lambda: binfhe.bootstrap_keygen(ctx, sk,
+                                                                   rng))
+    outs, misses = [], []
+    dec = {k: [] for k in ("eval_floor", "eval_sign_large", "eval_decomp",
+                           "eval_sign")}
+
+    def run(name, fn, read, *args):
+        res = timed(name, lambda: fn(ctx, bk, *args))
+        res = res if isinstance(res, list) else [res]
+        outs.extend(res)
+        dec[name].extend(read(c) for c in res)
+        return dec[name][-len(res):]
+
+    for v in floors:
+        ct = binfhe.encrypt_phase(ctx, sk, v, mod, rng)
+        got, = run("eval_floor", binfhe.eval_floor,
+                   lambda c: binfhe.decrypt_phase(ctx, sk, c), ct, LP_BETA)
+        want = (v + LP_BETA) // q * q
+        if not min((got - want) % mod, (want - got) % mod) < 2 * LP_BETA:
+            misses.append(f"eval_floor({v}) = {got}, want {want} within "
+                          f"{2 * LP_BETA}")
+    for v in signs:
+        ct = binfhe.encrypt_phase(ctx, sk, v, mod, rng)
+        got, = run("eval_sign_large", binfhe.eval_sign_large,
+                   lambda c: binfhe.decrypt_zp(ctx, sk, c, 2), ct, LP_BETA)
+        if got != int(v >= mod // 2):
+            misses.append(f"eval_sign_large({v}) = {got}")
+    ct = binfhe.encrypt_phase(ctx, sk, LP_DECOMP, mod, rng)
+    digs = run("eval_decomp", binfhe.eval_decomp,
+               lambda c: binfhe.decrypt_phase(ctx, sk, c), ct, LP_BETA)
+    d0, v0 = digs[0], LP_DECOMP % q
+    if not (len(digs) >= 2 and min((d0 - v0) % q, (v0 - d0) % q) < 16):
+        misses.append(f"eval_decomp({LP_DECOMP}) = {digs}")
+    for m in sign_msgs:
+        ct = binfhe.encrypt_zp(ctx, sk, m, P_MSG, rng)
+        got, = run("eval_sign", binfhe.eval_sign,
+                   lambda c: binfhe.decrypt_zp(ctx, sk, c, P_MSG), ct, P_MSG)
+        if got != SIGN_LUT[m]:
+            misses.append(f"eval_sign({m}) = {got}")
+    return bk, outs, dec, misses
+
+
+def lmk_flow(binfhe, ctx, seed, timed, gates=LMK_GATES, refresh=True,
+             lut=True):
+    """LMKCDEY: the keys, each gate over its truth table as one batch, a
+    refresh of 0 and of 1 and one eval_func, every decryption exact.
+    Returns (the secret, the key, every tensor, every (b, modulus) and
+    decryption)."""
+    rng = np.random.default_rng(seed)
+    sk = binfhe.keygen(ctx, rng)
+    bk = timed("bootstrap_keygen", lambda: binfhe.bootstrap_keygen(ctx, sk,
+                                                                   rng))
+    states = [bk.ek.cpu(), bk.ak.cpu(), bk.ks_a.cpu(), bk.ks_b.cpu()]
+    outs = []
+
+    def check(label, cts, got, want):
+        states.extend(c.a.cpu() for c in cts)
+        outs.extend((c.b, c.modulus, g) for c, g in zip(cts, got))
+        need(list(got) == list(want), f"LMKCDEY {label}: decrypted {got}, "
+             f"want {list(want)}")
+
+    for gate in gates:
+        c1 = [binfhe.encrypt(ctx, sk, x, rng) for x, _ in PAIRS]
+        c2 = [binfhe.encrypt(ctx, sk, y, rng) for _, y in PAIRS]
+        res = timed(gate, lambda: binfhe.eval_gate_batch(ctx, gate, bk, c1,
+                                                         c2))
+        check(gate, res, [binfhe.decrypt(ctx, sk, c) for c in res],
+              [BOOL_GATES[gate](x, y) for x, y in PAIRS])
+    for x in (0, 1) if refresh else ():
+        ct = binfhe.encrypt(ctx, sk, x, rng)
+        res = timed("bootstrap", lambda: binfhe.bootstrap(ctx, bk, ct))
+        check(f"refresh of {x}", [res], [binfhe.decrypt(ctx, sk, res)], [x])
+    if lut:
+        ct = binfhe.encrypt_zp(ctx, sk, 3, P_MSG, rng)
+        res = timed("eval_func", lambda: binfhe.eval_func(ctx, bk, ct,
+                                                          list(LUT), P_MSG))
+        check("eval_func", [res], [binfhe.decrypt_zp(ctx, sk, res, P_MSG)],
+              [LUT[3]])
+    return sk, bk, states, outs
+
+
+def binfhe_lp_phase(device):
+    """Phase 18: the large-precision functions at STD128 and LMKCDEY at
+    STD128_LMKCDEY on the card, each op's host seconds and launches logged.
+    Returns the launches."""
+    from openfhe_tpu_torch.models import binfhe
+
+    reset_counters()
+    times, calls = {}, {}
+    ctx = binfhe.gen_context(LP_SET, device)
+    p = ctx.params
+    _, _, dec, misses = lp_flow(binfhe, ctx, LP_SEED,
+                                stage_clock(times, calls))
+    log(f"  {LP_SET} ({p.method}, N={p.N}, n={p.n_lwe}), input modulus q_ks="
+        f"{p.q_ks}, beta={LP_BETA}: decryptions {dec}")
+    if LP_SET in LP_REFERENCE:
+        need(dec == LP_REFERENCE[LP_SET], f"{LP_SET}: the large-precision "
+             f"decryptions differ from the JAX package's "
+             f"{LP_REFERENCE[LP_SET]}")
+        log(f"  equal to the JAX package's for the same seed; beyond the "
+            f"JAX test's bounds, in both packages: {misses}")
+    else:
+        need(not misses, f"{LP_SET}: beyond the JAX test's bounds: {misses}")
+    log_stages(times, calls)
+    times, calls = {}, {}
+    ctx = binfhe.gen_context(LMK_SET, device)
+    p = ctx.params
+    _, bk, _, outs = lmk_flow(binfhe, ctx, 83, stage_clock(times, calls))
+    log(f"  {LMK_SET}: N={p.N}, n={p.n_lwe}, {p.Q.bit_length()}-bit Q, "
+        f"dg={p.dg}; keys ek {tuple(bk.ek.shape)}, ak {tuple(bk.ak.shape)}; "
+        f"{', '.join(LMK_GATES)} over their truth tables, refreshes of 0 "
+        f"and 1 and eval_func exact ({len(outs)} decryptions)")
+    log_stages(times, calls)
+    launches = read_counters()
+    log(f"  launches in phase 18: {launches}")
+    missing = [k for k in ("ntt_forward", "ntt_inverse", "ks_inner_product")
+               if launches[k] == 0]
+    need(not missing, f"phase 18: kernels never launched: {missing}")
+    return launches
+
+
+def switch_fhew_params(binfhe):
+    from openfhe_tpu_torch.utils import nbtheory
+    return binfhe.BinFHEParams(n_lwe=8, N=256,
+                               Q=nbtheory.first_prime(27, 2 * 256),
+                               q_ks=1 << 14, log_bg=10, log_bks=5, sigma=3.19)
+
+
+def switch_flow(ring_dim, device, seed, timed):
+    """Scheme switching through its entry points: setup and keys,
+    CKKS -> FHEW of 0..7, FHEW -> CKKS of 8 bits, a comparison of 8 pairs,
+    the minimum and maximum of 2 values and the _alt forms over 4. Returns
+    (every tensor, every LWE's (b, modulus), a dict of decrypted results
+    and what each should be, and what the checks at this ring need)."""
+    from openfhe_tpu_torch.models import binfhe, ckks
+    from openfhe_tpu_torch.models import ckks_advanced as adv
+    from openfhe_tpu_torch.models import scheme_switch as ss
+
+    rng = np.random.default_rng(seed)
+    bctx = binfhe.gen_context(switch_fhew_params(binfhe), device)
+    sk_f = binfhe.keygen(bctx, rng)
+    bk = timed("bootstrap_keygen", lambda: binfhe.bootstrap_keygen(bctx, sk_f,
+                                                                   rng))
+    ctx = ckks.gen_context(ckks.CKKSParams(ring_dim=ring_dim, **SWITCH_CKKS),
+                           device)
+    pk, sk = ckks.keygen(ctx, rng)
+    pre = timed("setup", lambda: ss.setup(ctx, bctx, **SWITCH_SETUP))
+    keys = timed("keygen", lambda: ss.keygen(ctx, bctx, pre, sk, sk_f, pk,
+                                             rng))
+    rot_keys = ckks.rot_keygen(ctx, sk, ss.extremum_rotation_indices(ctx, 4),
+                               rng)
+    ks = [keys.conj, keys.evk, *keys.rot_stc.values(), *keys.rot_f2c.values(),
+          *rot_keys.values()]
+    states = [t.cpu() for k in ks for t in (k.b, k.a)]
+    states += [keys.lwe_ks_a.cpu(), keys.lwe_ks_b.cpu(), bk.ek.cpu()]
+    lwe_outs = []
+    res = {}
+
+    def tile(v):
+        return np.tile(np.array(v, dtype=float),
+                       ctx.params.num_slots // len(v))
+
+    def dec(ct, k):
+        states.extend(p.data.cpu() for p in ct.polys)
+        return ckks.decrypt(ctx, sk, ct, num_slots=k).real
+
+    ct = ckks.encrypt(ctx, pk, tile(range(8)), rng)
+    lwes = timed("eval_ckks_to_fhew", lambda: ss.eval_ckks_to_fhew(
+        ctx, bctx, pre, keys, ct, 8, P_MSG))
+    states.extend(c.a.cpu() for c in lwes)
+    lwe_outs.extend((c.b, c.modulus) for c in lwes)
+    q = lwes[0].modulus
+    res["ckks_to_fhew"] = ([binfhe.decrypt_zp(bctx, sk_f, c, P_MSG)
+                            for c in lwes], list(range(8)))
+    # the phase error of each sample: the N -> n_lwe key switch adds one
+    # Gaussian error for each of the N * d_ks key rows it sums
+    res["ckks_to_fhew_error"] = [
+        (binfhe.decrypt_phase(bctx, sk_f, c) - m * q // P_MSG + q // 2) % q
+        - q // 2 for m, c in enumerate(lwes)]
+    lwe_in = [binfhe.encrypt(bctx, sk_f, b, rng) for b in SWITCH_BITS]
+    out = timed("eval_fhew_to_ckks", lambda: ss.eval_fhew_to_ckks(
+        ctx, bctx, pre, keys, lwe_in))
+    # what FHEW -> CKKS decodes is sin(2 pi t), t each input's phase / q
+    res["fhew_to_ckks"] = (dec(out, 8), list(SWITCH_BITS), [
+        np.sin(2 * np.pi * binfhe.decrypt_phase(bctx, sk_f, c) / q)
+        for c in lwe_in])
+    ct1 = ckks.encrypt(ctx, pk, tile(SWITCH_V1), rng)
+    ct2 = ckks.encrypt(ctx, pk, tile(SWITCH_V2), rng)
+    out = timed("eval_compare_scheme_switching",
+                lambda: ss.eval_compare_scheme_switching(
+                    ctx, bctx, pre, keys, bk, ct1, ct2, 8, P_MSG))
+    # the signs FHEW sees (the same deterministic switch and LUTs, run
+    # again outside): sin(2 pi phase/q) is what FHEW -> CKKS decodes
+    diff = ss.eval_ckks_to_fhew(ctx, bctx, pre, keys,
+                                ckks.eval_sub(ct1, ct2), 8, P_MSG)
+    seen = [np.sin(2 * np.pi * binfhe.decrypt_phase(bctx, sk_f, c) / q)
+            for c in ss._signs(bctx, bk, diff, P_MSG)]
+    res["compare"] = (dec(out, 8), [1.0 if a < b else 0.0
+                                    for a, b in zip(SWITCH_V1, SWITCH_V2)],
+                      [(1 - s) / 2 for s in seen])
+    evk = keys.evk
+    ct = ckks.encrypt(ctx, pk, tile([3, 1] + [0] * 6), rng)
+    mn, ind = timed("eval_min_scheme_switching",
+                    lambda: ss.eval_min_scheme_switching(
+                        ctx, bctx, pre, keys, bk, evk, rot_keys, ct, 2, P_MSG))
+    mx, ind2 = timed("eval_max_scheme_switching",
+                     lambda: ss.eval_max_scheme_switching(
+                         ctx, bctx, pre, keys, bk, evk, rot_keys, ct, 2,
+                         P_MSG))
+    diff = ss.eval_ckks_to_fhew(ctx, bctx, pre, keys, adv.sub_auto(
+        ctx, ct, ckks.eval_rotate(ct, 1, rot_keys[1])), 1, P_MSG)
+    s = np.sin(2 * np.pi * binfhe.decrypt_phase(
+        bctx, sk_f, ss._signs(bctx, bk, diff, P_MSG)[0]) / q)
+    res["min"] = (np.concatenate([dec(mn, 1), dec(ind, 2)]), [1, 0, 1],
+                  [3 * (1 - s) / 2 + (1 + s) / 2, (1 - s) / 2, (1 + s) / 2])
+    res["max"] = (np.concatenate([dec(mx, 1), dec(ind2, 2)]), [3, 1, 0],
+                  [3 * (1 + s) / 2 + (1 - s) / 2, (1 + s) / 2, (1 - s) / 2])
+    ct = ckks.encrypt(ctx, pk, tile([3, 1, 2, 3] + [0] * 4), rng)
+    mn, ind = timed("eval_min_scheme_switching_alt",
+                    lambda: ss.eval_min_scheme_switching_alt(
+                        ctx, bctx, pre, keys, bk, evk, rot_keys, ct, 4,
+                        P_MSG))
+    mx, _ = timed("eval_max_scheme_switching_alt",
+                  lambda: ss.eval_max_scheme_switching_alt(
+                      ctx, bctx, pre, keys, bk, evk, rot_keys, ct, 4, P_MSG))
+    res["min_alt"] = (np.concatenate([dec(mn, 1), dec(ind, 4)]),
+                      [1, 0, 1, 0, 0], None)
+    res["max_alt"] = (dec(mx, 1), [3], None)
+    return states, lwe_outs, res
+
+
+def check_switch(res, label, exact_lwe):
+    """Each flow against the plaintext truth within the JAX tests' bounds
+    where the CKKS -> FHEW samples are exact (`exact_lwe`), and always
+    within the same bounds against what its LWE inputs encrypt: FHEW -> CKKS
+    against sin(2 pi t) of each input's phase, compare, min and max against
+    the signs FHEW produced (the two-round _alt forms have no such model and
+    are held only where the samples are exact)."""
+    got, want = res["ckks_to_fhew"]
+    err = np.asarray(res["ckks_to_fhew_error"])
+    log(f"  {label}: CKKS -> FHEW decrypts {got} (want {want}); phase "
+        f"errors {err.tolist()} (std {float(np.std(err)):.1f}; the messages "
+        f"are {2 * 256 // P_MSG} apart)")
+    if exact_lwe:
+        need(got == want, f"{label}: CKKS -> FHEW decrypted {got}")
+    for name, bound in (("fhew_to_ckks", F2C_BOUND),
+                        ("compare", COMPARE_BOUND), ("min", MINMAX_BOUND),
+                        ("max", MINMAX_BOUND), ("min_alt", ALT_BOUND),
+                        ("max_alt", ALT_BOUND)):
+        got, want, model = res[name]
+        need(np.all(np.isfinite(got)), f"{label}: {name} not finite")
+        e = float(np.max(np.abs(np.asarray(got) - want)))
+        text = (f"  {label}: {name} {np.round(got, 4).tolist()}: against the "
+                f"plaintext {e:.4f}")
+        if model is not None:
+            em = float(np.max(np.abs(np.asarray(got) - model)))
+            text += f", against what its inputs encrypt {em:.4f}"
+            need(em < bound, f"{label}: {name} error {em} against its inputs")
+        log(f"{text} (bound {bound})")
+        if exact_lwe and name != "fhew_to_ckks":
+            need(e < bound, f"{label}: {name} error {e} above {bound}")
+
+
+def switch_phase(device):
+    """Phase 19: scheme switching with the CKKS side at n = 2^16. Returns
+    the launches."""
+    reset_counters()
+    times, calls = {}, {}
+    _, _, res = switch_flow(RING_DIM, device, 91, stage_clock(times, calls))
+    launches = read_counters()
+    log_stages(times, calls)
+    check_switch(res, f"n={RING_DIM}", exact_lwe=False)
+    log(f"  launches in phase 19: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    need(not missing, f"phase 19: kernels never launched: {missing}")
+    return launches
+
+
+def lp_small_states(device):
+    """Phase 20's runs on `device`: TOY_LP (floor, sign, decomp), TOY_LMKCDEY
+    (keys, a gate batch, the key's archives in both flavours) and scheme
+    switching at ring 512 with phase 19's FHEW set."""
+    from openfhe_tpu_torch.models import binfhe
+    from openfhe_tpu_torch.utils import serial
+
+    bk, cts, dec, misses = lp_flow(
+        binfhe, binfhe.gen_context("TOY_LP", device), 85, untimed,
+        floors=LP_FLOORS[:1], signs=LP_SIGNS[2:3], sign_msgs=(5,))
+    need(not misses, f"TOY_LP: beyond the JAX test's bounds: {misses}")
+    states = [bk.ek.cpu(), bk.ks_a.cpu(), bk.ks_b.cpu()]
+    states += [c.a.cpu() for c in cts]
+    outs = [(c.b, c.modulus) for c in cts] + [dec]
+    ctx = binfhe.gen_context("TOY_LMKCDEY", device)
+    _, bk, more, lmk_outs = lmk_flow(binfhe, ctx, 87, untimed,
+                                     gates=("AND",), refresh=False, lut=False)
+    states += more
+    outs += lmk_outs
+    docs = []
+    with tempfile.TemporaryDirectory() as d:
+        for fmt in ("binary", "json"):
+            path = f"{d}/lmk.{fmt}"
+            serial.save(bk, path, fmt)
+            if fmt == "json":
+                with open(path, "rb") as f:
+                    docs.append(f.read())
+            back = serial.load(path, "cpu")
+            states += [back.ek, back.ak, back.ks_a, back.ks_b]
+    more, lwe_outs, res = switch_flow(SWITCH_SMALL_RING, device, 93, untimed)
+    return states + more, outs + lwe_outs, docs, res
+
+
+def lp_against_cpu(device):
+    """Phase 20: phase 18's and 19's flows at small sizes on the card equal
+    to the CPU run; at ring 512 every scheme-switching flow meets the JAX
+    tests' bounds."""
+    t0 = time.perf_counter()
+    gpu, gpu_out, gpu_docs, gpu_res = lp_small_states(device)
+    t1 = time.perf_counter()
+    cpu, cpu_out, cpu_docs, cpu_res = lp_small_states(torch.device("cpu"))
+    t2 = time.perf_counter()
+    need(len(gpu) == len(cpu) and all(torch.equal(g.cpu(), c)
+                                      for g, c in zip(gpu, cpu)),
+         "phase 20: a key, ciphertext or archive differs from the CPU's")
+    need(gpu_out == cpu_out and gpu_docs == cpu_docs,
+         "phase 20: outputs or JSON archives differ from the CPU's")
+    need(all(np.array_equal(np.asarray(gpu_res[k][0]),
+                            np.asarray(cpu_res[k][0])) for k in gpu_res),
+         "phase 20: decrypted scheme-switching results differ from the CPU's")
+    check_switch(gpu_res, f"n={SWITCH_SMALL_RING}", exact_lwe=True)
+    log(f"  {len(gpu)} keys, ciphertexts and loaded archives torch.equal to "
+        f"the CPU run, {len(gpu_out)} outputs and {len(gpu_docs)} JSON "
+        f"archives equal; card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1412,9 +1849,12 @@ def main():
     ctx_boot = ckks.gen_context(ckks.CKKSParams(**BOOT_PARAMS), device)
     ctx_bgv = bgv.gen_context(bgv.BGVParams(**BGV_PARAMS), device)
     ctx_bfv = bfv.gen_context(bfv.BFVParams(**BFV_PARAMS), device)
+    ctx_sw = ckks.gen_context(ckks.CKKSParams(ring_dim=RING_DIM,
+                                              **SWITCH_CKKS), device)
 
     log("[2] kernels against their twins")
-    checks = check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, device)
+    checks = check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw,
+                           device)
 
     log("[3] main path, 60-bit chain")
     launches = main_path(ckks, ctx60, "60-bit chain", seed=7)
@@ -1450,6 +1890,13 @@ def main():
     log("[17] BINFHE: STD128 gates, STD128Q_3, STD128_AP; TOY on the card "
         "against the CPU")
     binfhe_launches, _ = binfhe_phase(device)
+    log("[18] BINFHE large precision at STD128, LMKCDEY at STD128_LMKCDEY")
+    lp_launches = binfhe_lp_phase(device)
+    log(f"[19] scheme switching, CKKS at n = 2^{RING_DIM.bit_length() - 1}")
+    switch_launches = switch_phase(device)
+    log("[20] TOY_LP, TOY_LMKCDEY and scheme switching at n = "
+        f"{SWITCH_SMALL_RING} on the card against the CPU")
+    lp_against_cpu(device)
 
     kernels = [{"name": name, "route": "cuda",
                 "source": f"openfhe_tpu_torch/{src}", "replaces": rep,
@@ -1459,7 +1906,10 @@ def main():
                 "bfv_launches": bfv_launches[name],
                 "threshold_launches": threshold_launches[name],
                 "pre_launches": pre_launches[name],
-                "binfhe_launches": binfhe_launches[name], **checks[name]}
+                "binfhe_launches": binfhe_launches[name],
+                "binfhe_lp_launches": lp_launches[name],
+                "scheme_switch_launches": switch_launches[name],
+                **checks[name]}
                for name, (src, rep) in SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import _build, dcrt, keyswitch
-from .models import bfv, bgv, binfhe, ckks, ckks_bootstrap
+from .models import bfv, bgv, binfhe, ckks, ckks_bootstrap, scheme_switch
 
 
 def u64_to_tensor(lo, hi, device=None) -> torch.Tensor:
@@ -189,6 +189,11 @@ def ckks_context_from_jax(ctx, device=None) -> ckks.CKKSContext:
 
 
 
+def _int64_tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x).astype(np.int64)).to(
+        _build.resolve_device(device))
+
+
 def binfhe_context_from_jax(ctx, device=None) -> binfhe.BinFHEContext:
     return binfhe.gen_context(
         binfhe.BinFHEParams(**dataclasses.asdict(ctx.params)), device)
@@ -230,11 +235,8 @@ def bootstrap_key_from_arrays(ek_lo, ek_hi, ks_a, ks_b, device=None
     axes 1 and 3 swapped (``models/binfhe.py``), the key-switch key int64."""
     device = _build.resolve_device(device)
     ek = u64_to_tensor(ek_lo, ek_hi, device).transpose(1, 3).contiguous()
-
-    def as_int64(x):
-        return torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
-
-    return binfhe.BootstrapKey(ek, as_int64(ks_a), as_int64(ks_b))
+    return binfhe.BootstrapKey(ek, _int64_tensor(ks_a, device),
+                               _int64_tensor(ks_b, device))
 
 
 def bootstrap_key_from_jax(bk, device=None) -> binfhe.BootstrapKey:
@@ -248,3 +250,77 @@ def bootstrap_key_to_numpy(bk: binfhe.BootstrapKey):
     ek_lo, ek_hi = tensor_to_u64(bk.ek.transpose(1, 3).contiguous())
     return (ek_lo, ek_hi, bk.ks_a.cpu().numpy().astype(np.int32),
             bk.ks_b.cpu().numpy().astype(np.int32))
+
+
+def _rgsw_from_jax(lo, hi, device) -> torch.Tensor:
+    """[..., R, 2, N] uint32 planes -> int64 [..., 2, R, 1, N]: both halves
+    of a key's rows as contiguous slabs with a one-row axis (the LMKCDEY
+    layout of ``models/binfhe.py``)."""
+    return u64_to_tensor(lo, hi, device).transpose(-3, -2).unsqueeze(-2) \
+        .contiguous()
+
+
+def _rgsw_to_numpy(t: torch.Tensor):
+    return tensor_to_u64(t.squeeze(-2).transpose(-3, -2).contiguous())
+
+
+def lmkcdey_key_from_arrays(ek_lo, ek_hi, ak_lo, ak_hi, ks_a, ks_b,
+                            device=None) -> binfhe.LMKCDEYKey:
+    """The JAX package's LMKCDEYKey arrays (ek as uint32 planes of
+    [n, 2dg, 2, N], ak of [2, dg, 2, N], ks_a/ks_b int32) -> the port's key
+    (ek [n, 2, 2dg, 1, N], ak [2, 2, dg, 1, N], int64)."""
+    return binfhe.LMKCDEYKey(_rgsw_from_jax(ek_lo, ek_hi, device),
+                             _rgsw_from_jax(ak_lo, ak_hi, device),
+                             _int64_tensor(ks_a, device),
+                             _int64_tensor(ks_b, device))
+
+
+def lmkcdey_key_from_jax(bk, device=None) -> binfhe.LMKCDEYKey:
+    return lmkcdey_key_from_arrays(bk.ek_lo, bk.ek_hi, bk.ak_lo, bk.ak_hi,
+                                   bk.ks_a, bk.ks_b, device)
+
+
+def lmkcdey_key_to_numpy(bk: binfhe.LMKCDEYKey):
+    """-> (ek_lo, ek_hi, ak_lo, ak_hi, ks_a, ks_b) in the JAX package's
+    layout and dtypes."""
+    return (*_rgsw_to_numpy(bk.ek), *_rgsw_to_numpy(bk.ak),
+            bk.ks_a.cpu().numpy().astype(np.int32),
+            bk.ks_b.cpu().numpy().astype(np.int32))
+
+
+def scheme_switch_precomp_from_jax(pre) -> scheme_switch.SchemeSwitchPrecomp:
+    """Host constants on both sides, carried as they are."""
+    return scheme_switch.SchemeSwitchPrecomp(int(pre.slots), pre.D,
+                                             int(pre.B), pre.cheb_coeffs)
+
+
+def scheme_switch_precomp_to_numpy(pre: scheme_switch.SchemeSwitchPrecomp
+                                   ) -> dict:
+    """-> the keyword arguments of the JAX SchemeSwitchPrecomp."""
+    return dict(slots=pre.slots, D=pre.D, B=pre.B,
+                cheb_coeffs=pre.cheb_coeffs)
+
+
+def scheme_switch_keys_from_jax(keys, device=None
+                                ) -> scheme_switch.SchemeSwitchKeys:
+    return scheme_switch.SchemeSwitchKeys(
+        kskey_from_jax(keys.conj, device),
+        rotation_keys_from_jax(keys.rot_stc, device),
+        rotation_keys_from_jax(keys.rot_f2c, device),
+        kskey_from_jax(keys.evk, device),
+        ciphertext_from_jax(keys.ct_s, device),
+        _int64_tensor(keys.lwe_ks_a, device),
+        _int64_tensor(keys.lwe_ks_b, device), int(keys.q_sw))
+
+
+def scheme_switch_keys_to_numpy(keys: scheme_switch.SchemeSwitchKeys) -> dict:
+    """-> the JAX SchemeSwitchKeys' fields: switching keys as
+    ``kskey_to_numpy`` planes, ct_s as ``ciphertext_to_numpy``, the LWE
+    switching key int64."""
+    return dict(conj=kskey_to_numpy(keys.conj),
+                rot_stc=rotation_keys_to_numpy(keys.rot_stc),
+                rot_f2c=rotation_keys_to_numpy(keys.rot_f2c),
+                evk=kskey_to_numpy(keys.evk),
+                ct_s=ciphertext_to_numpy(keys.ct_s),
+                lwe_ks_a=keys.lwe_ks_a.cpu().numpy(),
+                lwe_ks_b=keys.lwe_ks_b.cpu().numpy(), q_sw=keys.q_sw)

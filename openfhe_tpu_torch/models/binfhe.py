@@ -1,13 +1,15 @@
-"""BINFHE: FHEW/TFHE boolean gates with CGGI (GINX) and DM (AP) blind
-rotation.
+"""BINFHE: FHEW/TFHE boolean gates with CGGI (GINX), DM (AP) and LMKCDEY
+blind rotation, programmable bootstrapping and the large-precision ops.
 
-Counterpart of ``openfhe_tpu/models/binfhe.py`` up to its gates (LWE and
-public-key LWE, the GINX and AP bootstrap keys and blind rotations, gate
-bootstrapping, the 2-input and multi-input gates, CMUX and refresh) plus
-``encrypt_zp``/``decrypt_zp`` and the rounding modulus switch. Randomness is
-the caller's numpy Generator, drawn in the JAX package's order and dtypes, and
-every device op returns the unique reduced residue, so keys, accumulators
-and ciphertexts are bit-equal to the JAX package's for the same seed.
+Counterpart of the whole of ``openfhe_tpu/models/binfhe.py``: LWE and
+public-key LWE, the GINX, AP and LMKCDEY bootstrap keys and blind rotations,
+gate bootstrapping, the 2-input and multi-input gates, CMUX and refresh,
+``encrypt_zp``/``decrypt_zp``, the rounding modulus switch, ``eval_func``
+(negacyclic LUTs) and the large-precision ``eval_floor``,
+``eval_sign_large`` and ``eval_decomp``. Randomness is the caller's numpy
+Generator, drawn in the JAX package's order and dtypes, and every device op
+returns the unique reduced residue, so keys, accumulators and ciphertexts
+are bit-equal to the JAX package's for the same seed.
 
 Layout on the device (int64 residues, one modulus Q):
 
@@ -19,21 +21,25 @@ Layout on the device (int64 residues, one modulus Q):
   axes 1 and 3 swapped: ``[T, 2, 2*dg, V, N]``, V = 2 signs (GINX, T = n) or
   B_r values (AP, T = n*d_r). ``ek[t, 0]`` and ``ek[t, 1]`` are the two
   halves of step t as contiguous ``[2*dg, V, N]`` slabs, and the kernel's row
-  index picks the sign (GINX) or the gathered digit's slab (AP);
+  index picks the sign (GINX) or the gathered digit's slab (AP). The
+  LMKCDEY key keeps the same layout with V = 1: ``ek`` ``[n, 2, 2*dg, 1, N]``
+  (the JAX package's ``[n, 2*dg, 2, N]``) and the two automorphism keys
+  ``ak`` ``[2, 2, dg, 1, N]`` (the JAX package's ``[2, dg, 2, N]``);
 * the LWE key-switch key keeps the reference's ``[N, d_ks, B_ks, n]``.
 
 One CGGI step is, for each sign: the signed gadget decomposition (one int64
 path for every Q up to 59 bits), the forward NTT of ``[2*dg*B, 1, N]``, the
 digit inner product, a multiply by the (X^c - 1) row of the monomial table,
-the inverse NTT of ``[2*B, 1, N]`` and an add. The step loop is a Python
-loop on the card (the reference's ``lax.scan``). The sample extraction, both
-rounding modulus switches and the LWE key switch run on the card too; the
-rounding is exact at every width (the reference's int64 product wraps in
-``_mod_switch_lwe`` once Q and the new modulus pass 62 bits together).
-
-LMKCDEY contexts are accepted and draw their Gaussian secret; the LMKCDEY
-key and blind rotation and the large-precision functions are not ported yet
-and raise ``NotImplementedError``.
+the inverse NTT of ``[2*B, 1, N]`` and an add. An LMKCDEY step is an
+external product against ``ek[i]`` (decomposition, NTT, ``ks_inner_product``,
+inverse NTT) or an automorphism X -> X^t, t = 5 or 2N - 5 (a signed
+permutation of both halves, then the one-half key switch back under the
+ring secret, by the same three kernels); its schedule is built on the host
+per ciphertext. Every step loop is a Python loop on the card (the
+reference's ``lax.scan``). The sample extraction, both rounding modulus
+switches and the LWE key switch run on the card too; the rounding is exact
+at every width (the reference's int64 product wraps in ``_mod_switch_lwe``
+once Q and the new modulus pass 62 bits together).
 """
 
 from __future__ import annotations
@@ -53,8 +59,6 @@ from ..utils import nbtheory, sampling
 
 NTT_ROWS = 65535           # rows one NTT launch takes (its grid limit)
 KS_GATHER_BYTES = 1 << 30  # the LWE key switch gathers at most this at once
-_LMKCDEY_TODO = ("LMKCDEY blind rotation is not ported to openfhe_tpu_torch "
-                 "yet (ROADMAP.md Queue 1, item 2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,42 +343,47 @@ def keygen(ctx: BinFHEContext, rng: np.random.Generator) -> BinFHESecret:
                         sampling.ternary_coeffs(p.N, rng))
 
 
-def _encrypt_phase(ctx: BinFHEContext, sk: BinFHESecret, value: int,
-                   rng: np.random.Generator) -> LWECiphertext:
-    """LWE encryption of `value` at q: a drawn as int64, then one normal."""
+def encrypt_phase(ctx: BinFHEContext, sk: BinFHESecret, value: int,
+                  modulus: int, rng: np.random.Generator) -> LWECiphertext:
+    """LWE encryption of a raw phase `value` at any (power-of-two)
+    `modulus`, the input format of the large-precision ops: a drawn as
+    int64, then one normal."""
     p = ctx.params
-    q = p.q
-    a = rng.integers(0, q, size=p.n_lwe, dtype=np.int64)
+    a = rng.integers(0, modulus, size=p.n_lwe, dtype=np.int64)
     e = int(np.rint(rng.normal(0, p.sigma)))
-    return LWECiphertext(_rows(ctx, a), (int(a @ sk.s_lwe) + e + value) % q,
-                         q)
+    return LWECiphertext(_rows(ctx, a),
+                         (int(a @ sk.s_lwe) + e + value) % modulus, modulus)
 
 
-def _phase(sk: BinFHESecret, ct: LWECiphertext) -> int:
+def decrypt_phase(ctx: BinFHEContext, sk: BinFHESecret,
+                  ct: LWECiphertext) -> int:
+    """b - <a, s> mod the ciphertext's modulus."""
     return (ct.b - int(ct.a.cpu().numpy() @ sk.s_lwe)) % ct.modulus
 
 
 def encrypt(ctx: BinFHEContext, sk: BinFHESecret, bit: int,
             rng: np.random.Generator) -> LWECiphertext:
     """LWE encrypt a bit at q/4 (LWEEncryptionScheme::Encrypt)."""
-    return _encrypt_phase(ctx, sk, bit * (ctx.params.q // 4), rng)
+    q = ctx.params.q
+    return encrypt_phase(ctx, sk, bit * (q // 4), q, rng)
 
 
 def decrypt(ctx: BinFHEContext, sk: BinFHESecret, ct: LWECiphertext) -> int:
     q = ct.modulus
-    return int(((4 * _phase(sk, ct) + q // 2) // q) % 4) & 1
+    return int(((4 * decrypt_phase(ctx, sk, ct) + q // 2) // q) % 4) & 1
 
 
 def encrypt_zp(ctx: BinFHEContext, sk: BinFHESecret, m: int, p: int,
                rng: np.random.Generator) -> LWECiphertext:
     """LWE encrypt a message of Z_p at q/p."""
-    return _encrypt_phase(ctx, sk, (m * ctx.params.q) // p, rng)
+    q = ctx.params.q
+    return encrypt_phase(ctx, sk, (m * q) // p, q, rng)
 
 
 def decrypt_zp(ctx: BinFHEContext, sk: BinFHESecret, ct: LWECiphertext,
                p: int) -> int:
     q = ct.modulus
-    return int(((p * _phase(sk, ct) + q // 2) // q) % p)
+    return int(((p * decrypt_phase(ctx, sk, ct) + q // 2) // q) % p)
 
 
 # ---------------------------------------------------------------------------
@@ -483,8 +492,16 @@ def _keyswitch_keygen(ctx: BinFHEContext, sk: BinFHESecret,
                       rng: np.random.Generator):
     """LWE key-switch key from the ring coefficients to s_lwe at q_ks
     (LWEEncryptionScheme::KeySwitchGen)."""
+    return _lwe_keyswitch_keygen(ctx, sk.z_ring, sk.s_lwe, rng)
+
+
+def _lwe_keyswitch_keygen(ctx: BinFHEContext, z: np.ndarray,
+                          s_lwe: np.ndarray, rng: np.random.Generator):
+    """Encryptions under s_lwe at q_ks of v * B_ks^d * z_j for every
+    coordinate j of the source key z (any dimension: the ring secret here,
+    the CKKS secret in scheme switching): a drawn first, then the errors."""
     p = ctx.params
-    N, n = p.N, p.n_lwe
+    N, n = len(z), p.n_lwe
     q_ks, d_ks, B_ks = p.q_ks, p.d_ks, p.B_ks
     a_ks = _rows(ctx, rng.integers(0, q_ks, size=(N, d_ks, B_ks, n),
                                    dtype=np.int64))
@@ -492,8 +509,8 @@ def _keyswitch_keygen(ctx: BinFHEContext, sk: BinFHESecret,
     vals = np.arange(B_ks, dtype=np.int64)[None, None, :]
     powers = np.array([pow(B_ks, d, q_ks) for d in range(d_ks)], np.int64)
     targets = (vals * powers[None, :, None] % q_ks
-               * sk.z_ring[:, None, None]) % q_ks
-    s = _rows(ctx, sk.s_lwe)
+               * np.asarray(z, dtype=np.int64)[:, None, None]) % q_ks
+    s = _rows(ctx, s_lwe)
     b_ks = ((a_ks * s).sum(dim=-1) + _rows(ctx, e_ks.astype(np.int64)
                                            + targets)) % q_ks
     return a_ks, b_ks
@@ -513,7 +530,7 @@ def bootstrap_keygen(ctx: BinFHEContext, sk: BinFHESecret,
     if method == "AP":
         return _bootstrap_keygen_dm(ctx, sk, rng)
     if method == "LMKCDEY":
-        raise NotImplementedError(_LMKCDEY_TODO)
+        return bootstrap_keygen_lmkcdey(ctx, sk, rng)
     assert method == "GINX", method
     return _bootstrap_keygen_cggi(ctx, sk, rng)
 
@@ -696,13 +713,22 @@ def _rotate_test_vector(ctx: BinFHEContext, tv: torch.Tensor,
     return ext[idx]
 
 
-def _bootstrap_core(ctx: BinFHEContext, bk: BootstrapKey,
-                    a_2n: torch.Tensor, b_2n: Sequence[int]) -> torch.Tensor:
-    """Blind-rotate the test vector by the phase of each (a, b) mod 2N.
+def _bootstrap_core(ctx: BinFHEContext, bk, a_2n: torch.Tensor,
+                    b_2n: Sequence[int]) -> torch.Tensor:
+    """Blind-rotate the gate test vector by the phase of each (a, b) mod 2N.
     a_2n [B, n_lwe]; returns the accumulator [2, B, N] (coefficients)."""
+    return _bootstrap_core_tv(ctx, bk, a_2n, b_2n, _test_vector(ctx))
+
+
+def _bootstrap_core_tv(ctx: BinFHEContext, bk, a_2n, b_2n: Sequence[int],
+                       tv: torch.Tensor) -> torch.Tensor:
+    """_bootstrap_core with the caller's test polynomial tv [N] (reduced
+    residues on the context's device): the negacyclic shift by each b runs
+    on the card."""
+    a_2n = _rows(ctx, a_2n)
     if ctx.params.method == "LMKCDEY":
-        raise NotImplementedError(_LMKCDEY_TODO)
-    c0 = _rotate_test_vector(ctx, _test_vector(ctx), b_2n)
+        return _bootstrap_core_lmk(ctx, bk, a_2n, b_2n, tv)
+    c0 = _rotate_test_vector(ctx, tv, b_2n)
     acc = torch.stack([c0, torch.zeros_like(c0)])
     return _run_blind_rotation(ctx, bk, acc, a_2n)
 
@@ -720,13 +746,14 @@ def _run_blind_rotation(ctx: BinFHEContext, bk: BootstrapKey,
 def _lwe_keyswitch_batch(ctx: BinFHEContext, ks_a: torch.Tensor,
                          ks_b: torch.Tensor, a1: torch.Tensor,
                          b1: torch.Tensor):
-    """LWE key switch from dimension N to n_lwe at q_ks
-    (LWEEncryptionScheme::KeySwitch): base-B_ks digits of each coordinate
-    gather key rows, which are summed. a1 [B, N], b1 [B] mod q_ks; returns
+    """LWE key switch from dimension N (a1's, the ring's or the CKKS ring's)
+    to n_lwe at q_ks (LWEEncryptionScheme::KeySwitch): base-B_ks digits of
+    each coordinate gather key rows, which are summed. a1 [B, N], b1 [B]
+    mod q_ks; returns
     (a_out [B, n], b_out [B]). The [b, N, d_ks, n] gather runs in batches
     of at most KS_GATHER_BYTES."""
     p = ctx.params
-    N, n, q_ks, B_ks, d_ks = p.N, p.n_lwe, p.q_ks, p.B_ks, p.d_ks
+    N, n, q_ks, B_ks, d_ks = a1.shape[1], p.n_lwe, p.q_ks, p.B_ks, p.d_ks
     digits = []
     rem = a1
     for _ in range(d_ks):
@@ -743,13 +770,19 @@ def _lwe_keyswitch_batch(ctx: BinFHEContext, ks_a: torch.Tensor,
     return a_out, b_out
 
 
-def _extract_and_keyswitch_offset(ctx: BinFHEContext, bk: BootstrapKey,
-                                  acc: torch.Tensor, offset: int) -> list:
-    """Sample-extract LWE(Q, N) from each accumulator, add `offset` to b,
-    switch to q_ks, key-switch to s_lwe and switch to the gate modulus q
+def _extract_and_keyswitch_offset(ctx: BinFHEContext, bk,
+                                  acc: torch.Tensor, offset: int,
+                                  out_mod: int | None = None) -> list:
+    """Sample-extract LWE(Q, N) from each accumulator, add `offset` to b
+    (gate bootstrapping adds Q/8, a LUT none), switch to q_ks, key-switch to
+    s_lwe and switch to `out_mod` (default the gate modulus q; at most q_ks:
+    the large-precision ops keep their large modulus)
     (binfhe-base-scheme.cpp:118-122); both switches round exactly."""
     p = ctx.params
     Q, q_ks, q = p.Q, p.q_ks, p.q
+    if out_mod is not None:
+        assert out_mod <= q_ks, "output modulus cannot exceed q_ks"
+        q = out_mod
     c0, c1 = acc[0], acc[1]
     b_n = (c0[:, 0] + offset) % Q
     a_n = torch.cat([c1[:, :1], neg_mod(c1[:, 1:].flip(1), Q)], dim=1)
@@ -901,3 +934,336 @@ def bootstrap(ctx: BinFHEContext, bk: BootstrapKey,
     {-q/8, 3q/8}, keeping the bit."""
     q = ctx.params.q
     return bootstrap_raw(ctx, bk, (2 * ct.a) % q, (2 * ct.b - q // 8) % q)
+
+
+# ---------------------------------------------------------------------------
+# Arbitrary-function bootstrapping over Z_p (BinFHEContext::EvalFunc for
+# negacyclic LUTs, binfhe-base-scheme.cpp:241-349)
+# ---------------------------------------------------------------------------
+
+
+def _tv_tensor(ctx: BinFHEContext, tv: Sequence[int]) -> torch.Tensor:
+    """A test polynomial built in Python ints (f(x) * Q passes 2^63 once Q
+    and the output modulus are wide) as one int64 tensor of residues."""
+    return torch.tensor([int(t) for t in tv], dtype=torch.int64,
+                        device=ctx.device)
+
+
+def eval_func(ctx: BinFHEContext, bk, ct: LWECiphertext, lut,
+              p: int) -> LWECiphertext:
+    """Programmable bootstrapping: out encrypts lut[m] for input message m,
+    for NEGACYCLIC tables (lut[(m + p/2) % p] == -lut[m] mod p): the test
+    polynomial t_k = f(p - k*p/(2N)) * Q/p, blind-rotated by the phase."""
+    pp = ctx.params
+    N, Q, q = pp.N, pp.Q, pp.q
+    half = p // 2
+    for m in range(half):
+        assert (lut[(m + half) % p] + lut[m]) % p == 0, \
+            "lut must be negacyclic; compose eval_func twice otherwise"
+    tv = [(lut[(p - int(np.rint(k * p / (2.0 * N)))) % p] * Q // p) % Q
+          for k in range(N)]
+    f = (2 * N) // q     # exponent scale when the gate modulus q < 2N
+    acc = _bootstrap_core_tv(ctx, bk, (ct.a * f)[None, :] % (2 * N),
+                             [(ct.b * f) % (2 * N)], _tv_tensor(ctx, tv))
+    return _extract_and_keyswitch_offset(ctx, bk, acc, offset=0)[0]
+
+
+def eval_sign(ctx: BinFHEContext, bk, ct: LWECiphertext,
+              p: int) -> LWECiphertext:
+    """Sign of a centered Z_p message: 1 for m in (0, p/2), p-1 for
+    m in (p/2, p) (EvalSign's single-digit core)."""
+    lut = [0] + [1] * (p // 2 - 1) + [0] + [p - 1] * (p // 2 - 1)
+    return eval_func(ctx, bk, ct, lut, p)
+
+
+# ---------------------------------------------------------------------------
+# Large precision: EvalFloor, the large EvalSign and EvalDecomp
+# (binfhe-base-scheme.cpp:316-483): a ciphertext at a large power-of-two
+# modulus is processed in log2(2N)-bit chunks by pairs of negacyclic
+# phase-domain bootstraps
+# ---------------------------------------------------------------------------
+
+
+def _bootstrap_phase_func(ctx: BinFHEContext, bk, ct: LWECiphertext, f,
+                          out_mod: int) -> LWECiphertext:
+    """PBS computing f(phase mod 2N) at output modulus out_mod, where f is
+    negacyclic over [0, 2N): f(x + N) == -f(x) mod out_mod (BootstrapFunc's
+    test vector). ct.modulus must be a multiple of 2N, so truncation keeps
+    the phase mod 2N."""
+    p = ctx.params
+    N, Q = p.N, p.Q
+    assert ct.modulus % (2 * N) == 0, "modulus must be a multiple of 2N"
+    for x in range(N):
+        assert (f(x) + f(x + N)) % out_mod == 0, "f must be negacyclic"
+    # tv_0 = f(0), tv_k = -f(N - k): const(tv * X^phase) = f(phase)
+    tv = [f(0) * Q // out_mod % Q] + [(-(f(N - k) * Q // out_mod)) % Q
+                                      for k in range(1, N)]
+    acc = _bootstrap_core_tv(ctx, bk, ct.a[None, :] % (2 * N),
+                             [ct.b % (2 * N)], _tv_tensor(ctx, tv))
+    return _extract_and_keyswitch_offset(ctx, bk, acc, offset=0,
+                                         out_mod=out_mod)[0]
+
+
+def _lwe_sub(x: LWECiphertext, y: LWECiphertext) -> LWECiphertext:
+    mod = x.modulus
+    return LWECiphertext((x.a - y.a) % mod, (x.b - y.b) % mod, mod)
+
+
+def eval_floor(ctx: BinFHEContext, bk, ct: LWECiphertext,
+               beta: int) -> LWECiphertext:
+    """Clear the low log2(2N) bits of the phase (EvalFloor,
+    binfhe-base-scheme.cpp:316-354): out ~ (m + beta) - ((m + beta) mod 2N)
+    at the same large modulus; beta bounds the accumulated noise."""
+    q = 2 * ctx.params.N       # the chunk modulus (the reference's q)
+    mod = ct.modulus
+    ct1 = LWECiphertext(ct.a.clone(), (ct.b + beta) % mod, mod)
+
+    def f1(x):   # +-q/4 by the half of (phase mod q)
+        return (mod - (q >> 2)) if x < (q >> 1) else (q >> 2)
+
+    ct1 = _lwe_sub(ct1, _bootstrap_phase_func(ctx, bk, ct1, f1, mod))
+
+    def f2(x):   # identity on the centered range, reflections outside
+        if x < (q >> 2):
+            return (mod - (q >> 1) - x) % mod
+        if x < 3 * (q >> 2):
+            return x
+        return (mod + (q >> 1) - x) % mod
+
+    return _lwe_sub(ct1, _bootstrap_phase_func(ctx, bk, ct1, f2, mod))
+
+
+def eval_sign_large(ctx: BinFHEContext, bk, ct: LWECiphertext,
+                    beta: int) -> LWECiphertext:
+    """Large-precision sign (the EvalSign loop, binfhe-base-scheme.cpp:
+    356-429): floor away low chunks until the modulus fits one PBS, then a
+    sign bootstrap. Returns an LWE at modulus 2N encrypting 0 if
+    phase < modulus/2 else 1 (at scale q/2)."""
+    q = 2 * ctx.params.N
+    mod = ct.modulus
+    cttmp = ct
+    while mod > q:
+        cttmp = eval_floor(ctx, bk, cttmp, beta)
+        mod = mod * 2 * beta // q
+        cttmp = _mod_switch_lwe(cttmp, mod)
+    if mod < q:  # scale up exactly (power-of-two factors)
+        factor = q // mod
+        cttmp = LWECiphertext((cttmp.a * factor) % q, (cttmp.b * factor) % q,
+                              q)
+    cttmp = LWECiphertext(cttmp.a, (cttmp.b + beta) % q, q)
+
+    def f3(x):
+        return (q >> 2) if x < (q >> 1) else (q - (q >> 2))
+
+    out = _bootstrap_phase_func(ctx, bk, cttmp, f3, q)
+    # the phase is +-q/4; shift to {q/2, 0} so decrypt_zp(..., 2) reads it
+    return LWECiphertext((-out.a) % q, ((q >> 2) - out.b) % q, q)
+
+
+def eval_decomp(ctx: BinFHEContext, bk, ct: LWECiphertext,
+                beta: int) -> list:
+    """Digit decomposition of a large-precision phase (EvalDecomp,
+    binfhe-base-scheme.cpp:431-483): LWE ciphertexts at modulus q = 2N, the
+    first encrypting (phase mod q), each later one the floored carry scaled
+    by 2*beta."""
+    q = 2 * ctx.params.N
+    mod = ct.modulus
+    cttmp = ct
+    out = []
+    while mod > q:
+        out.append(LWECiphertext(cttmp.a % q, cttmp.b % q, q))
+        cttmp = eval_floor(ctx, bk, cttmp, beta)
+        mod = mod * 2 * beta // q
+        cttmp = _mod_switch_lwe(cttmp, mod)
+    out.append(cttmp)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LMKCDEY blind rotation (rgsw-acc-lmkcdey.cpp, eprint 2022/198): n RGSW
+# keys of X^{s_i} and two automorphism keys; the rotation exponents are
+# walked along the orbit of X -> X^5. The JAX package turns the reference's
+# data-dependent loop into a fixed host-built schedule per ciphertext
+# (numAutoKeys fixed at 1: 2*(N/2 - 1) + 1 automorphisms and n external
+# products, padded with no-ops); here each step of it is a few launches.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LMKCDEYKey:
+    """``ek`` [n, 2, 2*dg, 1, N] RGSW(X^{s_i}), ``ak`` [2, 2, dg, 1, N] the
+    key-switch keys of sigma_5 (0) and sigma_{2N-5} (1), both halves of
+    each digit as contiguous slabs (module docstring), and the LWE
+    key-switch key, all int64 on the device."""
+
+    ek: torch.Tensor
+    ak: torch.Tensor
+    ks_a: torch.Tensor
+    ks_b: torch.Tensor
+
+
+_LMK_GEN = 5
+
+
+def _auto_perm_sign(N: int, t: int):
+    """Coefficient-domain automorphism X^j -> X^{j t mod 2N}: (dst [N],
+    sign [N]) with out[dst[j]] = sign[j] * in[j]."""
+    e = (np.arange(N, dtype=np.int64) * t) % (2 * N)
+    return np.where(e < N, e, e - N), np.where(e < N, 1, -1)
+
+
+@lru_cache(maxsize=None)
+def _auto_gather(N: int, t: int, device: torch.device):
+    """(src, negate) on the device: out[j] = -in[src[j]] where negate[j],
+    else in[src[j]] (the inverse of _auto_perm_sign's map)."""
+    dst, sgn = _auto_perm_sign(N, t)
+    src = np.empty(N, dtype=np.int64)
+    src[dst] = np.arange(N)
+    neg = np.empty(N, dtype=bool)
+    neg[dst] = sgn < 0
+    return (torch.from_numpy(src).to(device), torch.from_numpy(neg).to(device))
+
+
+def _apply_auto_np_free(rows: torch.Tensor, t: int, Q: int) -> torch.Tensor:
+    """The automorphism X -> X^t of residue rows [..., N] mod Q, on the
+    rows' device: the key's sigma_t(z), the free initial step (c1 = 0) and
+    each automorphism step's permutation of both halves."""
+    src, neg = _auto_gather(rows.shape[-1], t, rows.device)
+    x = rows.index_select(-1, src)
+    return torch.where(neg, neg_mod(x, Q), x)
+
+
+def _lmk_dlog_table(N: int) -> dict:
+    """dlog base 5 over the odd residues of Z_2N: class +k for 5^k, -k for
+    -5^k (k in [0, N/2)), 2N (the sentinel) for -1."""
+    M = 2 * N
+    table = {}
+    pw = 1
+    for k in range(N // 2):
+        table[pw] = k
+        table[M - pw] = -k if k > 0 else M
+        pw = pw * _LMK_GEN % M
+    return table
+
+
+def bootstrap_keygen_lmkcdey(ctx: BinFHEContext, sk: BinFHESecret,
+                             rng: np.random.Generator) -> LMKCDEYKey:
+    """(role of RingGSWAccumulatorLMKCDEY::KeyGenAcc + KeyGenAuto). Draws:
+    the RGSW rows of X^{s_i} [n, 2dg], then the automorphism keys for
+    t = 5 and t = 2N - 5 [dg] each, then the LWE key-switch key."""
+    p = ctx.params
+    N, Q, n, dg = p.N, p.Q, p.n_lwe, p.dg
+    mod = _mod(ctx)
+    z_eval = _z_eval(ctx, sk)
+    # ek_i = RGSW(X^{s_i mod 2N}): the DM slab construction at v = s_i
+    xc = _rows(ctx, _monomial_eval_np(ctx))[_rows(ctx, sk.s_lwe % (2 * N))]
+    powers = _rows(ctx, [(1 << (p.log_bg * d)) % Q for d in range(dg)])
+    # Q < 2^31 for LMKCDEY, so the products fit int64
+    first = (xc[:, None, :] * powers[None, :, None]) % Q        # [n, dg, N]
+    msgs = torch.cat([first, mul_mod(first, z_eval, mod)], dim=1)
+    c0, c1 = _rlwe_encrypt_batch(ctx, z_eval, msgs, (n, 2 * dg), rng)
+    ek = torch.stack([c0, c1], dim=1)[:, :, :, None, :]
+    # automorphism keys: row d encrypts B_g^d * sigma_t(z) under z
+    z = _rows(ctx, sampling.signed_to_rns_rows(sk.z_ring, (Q,))
+              .view(np.int64))                                   # [1, N]
+    ak = []
+    for t in (_LMK_GEN, 2 * N - _LMK_GEN):
+        zt = _ntt_nd(_apply_auto_np_free(z, t, Q), Q)[0]
+        msgs_t = mul_mod(powers[:, None].expand(dg, N), zt, mod)  # [dg, N]
+        kc0, kc1 = _rlwe_encrypt_batch(ctx, z_eval, msgs_t, (dg,), rng)
+        ak.append(torch.stack([kc0, kc1]))                        # [2, dg, N]
+    ak = torch.stack(ak)[:, :, :, None, :]
+    ks_a, ks_b = _keyswitch_keygen(ctx, sk, rng)
+    return LMKCDEYKey(ek, ak, ks_a, ks_b)
+
+
+def _lmk_schedule(ctx: BinFHEContext, a_vec) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+    """The fixed schedule of one ciphertext, built on the host: ops [T]
+    (0 external product, 1 automorphism by 5, 2 by 2N - 5, 3 no-op) and idx
+    [T] (the ek row of each external product); the reference's EvalAcc
+    control flow with numAutoKeys = 1, padded to T = 2*(N/2 - 1) + 1 + n."""
+    p = ctx.params
+    N = p.N
+    M = 2 * N
+    Nh = N // 2
+    dlog = _lmk_dlog_table(N)
+    neg, pos, cls0, clsM = {}, {}, [], []
+    for i, a in enumerate(np.asarray(a_vec, dtype=np.int64) % M):
+        k = dlog[int((M - a) % M) | 1]
+        if k == M:
+            clsM.append(i)
+        elif k == 0:
+            cls0.append(i)
+        elif k > 0:
+            pos.setdefault(k, []).append(i)
+        else:
+            neg.setdefault(-k, []).append(i)
+    ops, idx = [], []
+
+    def ext(lst):
+        ops.extend([0] * len(lst))
+        idx.extend(lst)
+
+    for i in range(Nh - 1, 0, -1):
+        ext(neg.get(i, []))
+        ops.append(1)
+        idx.append(0)
+    ext(clsM)
+    ops.append(2)
+    idx.append(0)
+    for i in range(Nh - 1, 0, -1):
+        ext(pos.get(i, []))
+        ops.append(1)
+        idx.append(0)
+    ext(cls0)
+    T = 2 * (Nh - 1) + 1 + p.n_lwe
+    ops += [3] * (T - len(ops))
+    idx += [0] * (T - len(idx))
+    assert len(ops) == T
+    return np.asarray(ops, np.int32), np.asarray(idx, np.int32)
+
+
+def _blind_rotate_lmk(ctx: BinFHEContext, bk: LMKCDEYKey, acc: torch.Tensor,
+                      ops: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+    """One ciphertext's schedule over acc [2, 1, N] (coefficients). An
+    external product replaces acc by acc (*) ek[j]; an automorphism permutes
+    both halves and key-switches the permuted c1 back under z: acc =
+    (c0' + ks_0, ks_1) with ks = sum_d digit_d(c1') * ak[which, :, d]."""
+    p = ctx.params
+    N, Q = p.N, p.Q
+    mod, row_mod = _mod(ctx), _row_mod(ctx, 1)
+    decompose = _make_signed_decompose(p)
+    auto_t = (_LMK_GEN, 2 * N - _LMK_GEN)
+    for op, j in zip(ops.tolist(), idx.tolist()):
+        if op == 0:
+            digits = _ntt_nd(decompose(acc), Q)                  # [2dg, 1, N]
+            ext = elementwise.ks_inner_product(
+                digits, bk.ek[j, 0], bk.ek[j, 1], (0,), row_mod)
+            acc = _ntt_nd(ext, Q, inverse=True)
+        elif op in (1, 2):
+            perm = _apply_auto_np_free(acc, auto_t[op - 1], Q)
+            digits = _ntt_nd(decompose(perm[1:]), Q)             # [dg, 1, N]
+            key = bk.ak[op - 1]
+            ks = _ntt_nd(elementwise.ks_inner_product(
+                digits, key[0], key[1], (0,), row_mod), Q, inverse=True)
+            acc = torch.stack([add_mod(perm[0], ks[0], Q), ks[1]])
+    return acc
+
+
+def _bootstrap_core_lmk(ctx: BinFHEContext, bk: LMKCDEYKey,
+                        a_2n: torch.Tensor, b_2n: Sequence[int],
+                        tv: torch.Tensor) -> torch.Tensor:
+    """Blind-rotate tv along the automorphism orbit, one ciphertext at a
+    time (each has its own schedule); returns the accumulator [2, B, N]."""
+    p = ctx.params
+    c0 = _rotate_test_vector(ctx, tv, b_2n)                       # [B, N]
+    # the free initial automorphism by 2N - g (c1 = 0)
+    c0 = _apply_auto_np_free(c0, 2 * p.N - _LMK_GEN, p.Q)
+    a_host = a_2n.cpu().numpy()
+    outs = []
+    for bi in range(c0.shape[0]):
+        acc = torch.stack([c0[bi:bi + 1], torch.zeros_like(c0[bi:bi + 1])])
+        outs.append(_blind_rotate_lmk(ctx, bk, acc,
+                                      *_lmk_schedule(ctx, a_host[bi])))
+    return torch.cat(outs, dim=1)

@@ -4,8 +4,10 @@ bootstrap goes, on one GPU.
     python3 -m openfhe_tpu_torch.profile_ops [ops] [passes] [butterfly]
                                              [bootstrap] [bgv] [bfv]
                                              [threshold] [binfhe]
+                                             [--method GINX|LMKCDEY]
 
-(no argument: all eight sections).
+(no argument: all eight sections; ``--method`` picks the blind rotation the
+binfhe section profiles, GINX by default).
 
 For EvalMult+relinearize, rescale and EvalRotate at n = 2^16 on the 60-bit
 chain (8 towers + 3 special primes) and on the composite chain (16 towers of
@@ -48,7 +50,14 @@ device time of the NTT forward and inverse kernels and of
 ``ks_inner_product`` by name, their launch counts from the wrappers, and
 the plain-torch kernels that take the most device time; then one external
 product (B = 4) taken apart into its pieces, each with its kernels, device
-time and host time a call.
+time and host time a call; and eval_sign_large at STD128 (input modulus
+q_ks = 2^14, beta = 64: one eval_floor and a sign bootstrap, three blind
+rotations), as the gates. With ``--method LMKCDEY``, BINFHE at
+STD128_LMKCDEY instead (N = 1024, n = 446): key generation, one AND gate
+(one ciphertext, whose schedule is 446 external products and 1023
+automorphisms) as above, then one external step and one automorphism step
+taken apart, each with its kernels, device and host time a call, and the
+split of a gate's host time between the two step kinds.
 Prints one line per op, per pass, per butterfly and per bootstrap figure
 and a last line of JSON with every number. Needs a CUDA device and nvcc.
 """
@@ -377,61 +386,127 @@ def _binfhe_step_pieces(binfhe, ctx, bk, B: int = 4) -> list:
     return rows
 
 
-def profile_binfhe() -> dict:
-    """BINFHE at STD128 (chip_smoke.py phase 17): bootstrap-key generation
-    once, then a batched AND (B = 4) and a refresh (B = 1), warm, with the
-    launches of each wrapper, the device time of each kernel and the plain
-    kernels that take the most device time; then one external product taken
-    apart."""
+def _binfhe_row(label: str, fn, wrappers, runs: int, **extra) -> dict:
+    """Host latency of `runs` runs after a warm one, the launches of each
+    wrapper in one run and a profiler trace of two more."""
+    fn()
+    before = {k: w.launches for k, w in wrappers.items()}
+    fn()
+    launches = {f"{k}_launches": w.launches - before[k]
+                for k, w in wrappers.items()}
+    ms = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    row = {"op": label, "host_ms_median": float(med), "host_ms_q1": float(q1),
+           "host_ms_q3": float(q3), "runs": runs, **extra, **launches,
+           **_profile(fn, runs=2, top=12)}
+    row["device_busy_share"] = row["device_busy_us"] / (1e3 * med)
+    print(f"{label}: host {med:.3f} ms ({q1:.3f}-{q3:.3f}, {runs} runs), "
+          f"device busy {row['device_busy_us']:.1f} us "
+          f"({100 * row['device_busy_share']:.1f}%), "
+          f"{row['kernels_per_op']:.0f} kernels; "
+          + ", ".join(f"{k} {launches[k + '_launches']} launches "
+                      f"{row[k + '_us']:.1f} us" for k in wrappers),
+          flush=True)
+    for k in row["plain_top"]:
+        print(f"  plain kernel {k['launches']:.0f} launches "
+              f"{k['us']:.1f} us: {k['kernel'][:150]}", flush=True)
+    return row
+
+
+def _lmk_step_pieces(binfhe, ctx, bk) -> list:
+    """One LMKCDEY external step and one automorphism step (by 5) on
+    [2, 1, N], as _binfhe_step_pieces takes its pieces: host time a call
+    over STEP_RUNS calls, device time by CUDA-graph replay, kernels from a
+    profiler trace."""
+    p = ctx.params
+    rng = np.random.default_rng(9)
+    acc = torch.from_numpy(rng.integers(0, p.Q, size=(2, 1, p.N))).to(
+        ctx.device)
+    zero = np.zeros(1, np.int32)
+    rows = []
+    for name, op, count in (("external product", 0, p.n_lwe),
+                            ("automorphism", 1, p.N - 1)):
+        ops = np.full(1, op, np.int32)
+
+        def fn():
+            return binfhe._blind_rotate_lmk(ctx, bk, acc, ops, zero)
+
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEP_RUNS):
+            fn()
+        torch.cuda.synchronize()
+        row = {"step": name, "steps_a_gate": count,
+               "host_us": 1e6 * (time.perf_counter() - t0) / STEP_RUNS,
+               "device_us": _graph_us(fn),
+               "kernels": _profile(fn, runs=STEP_RUNS)["kernels_per_op"]}
+        rows.append(row)
+        print(f"BINFHE {ctx.params.method} {name} step: {row['kernels']:.1f} "
+              f"kernels, device {row['device_us']:.1f} us, host "
+              f"{row['host_us']:.1f} us a call; {count} a gate: "
+              f"{count * row['host_us'] / 1e3:.1f} ms of host", flush=True)
+    return rows
+
+
+def _binfhe_keys(name: str, seed: int):
+    """A context of the named set, its secret and bootstrap key (timed), two
+    encryptions of 0 and 1, and the ported kernels' wrappers."""
     from .models import binfhe
     from .ops import elementwise
-    ctx = binfhe.gen_context("STD128")
-    rng = np.random.default_rng(61)
+    ctx = binfhe.gen_context(name)
+    rng = np.random.default_rng(seed)
     sk = binfhe.keygen(ctx, rng)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bk = binfhe.bootstrap_keygen(ctx, sk, rng)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
-    print(f"BINFHE STD128 bootstrap_keygen: {keygen_s:.3f} s (key "
+    print(f"BINFHE {name} bootstrap_keygen: {keygen_s:.3f} s (key "
           f"{tuple(bk.ek.shape)}, key switch {tuple(bk.ks_a.shape)})",
           flush=True)
     cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
     wrappers = {"ntt_forward": ntt.forward, "ntt_inverse": ntt.inverse,
                 "ks_inner_product": elementwise.ks_inner_product}
-    rows = []
-    for name, fn in (
-            ("AND, B = 4", lambda: binfhe.eval_gate_batch(
-                ctx, "AND", bk, cts * 2, cts[::-1] + cts)),
-            ("refresh, B = 1", lambda: binfhe.bootstrap(ctx, bk, cts[1]))):
-        fn()
-        before = {k: w.launches for k, w in wrappers.items()}
-        fn()
-        launches = {f"{k}_launches": w.launches - before[k]
-                    for k, w in wrappers.items()}
-        ms = _host_times(fn)
-        q1, med, q3 = np.percentile(ms, [25, 50, 75])
-        row = {"op": f"BINFHE STD128 {name}", "host_ms_median": float(med),
-               "host_ms_q1": float(q1), "host_ms_q3": float(q3),
-               "bootstrap_keygen_s": keygen_s, **launches,
-               **_profile(fn, runs=2, top=12)}
-        row["device_busy_share"] = row["device_busy_us"] / (1e3 * med)
-        print(f"BINFHE STD128 {name}: host {med:.3f} ms ({q1:.3f}-{q3:.3f}),"
-              f" device busy {row['device_busy_us']:.1f} us "
-              f"({100 * row['device_busy_share']:.1f}%), "
-              f"{row['kernels_per_op']:.0f} kernels; NTT forward "
-              f"{launches['ntt_forward_launches']} launches "
-              f"{row['ntt_forward_us']:.1f} us, inverse "
-              f"{launches['ntt_inverse_launches']} launches "
-              f"{row['ntt_inverse_us']:.1f} us, ks_inner_product "
-              f"{launches['ks_inner_product_launches']} launches "
-              f"{row['ks_inner_product_us']:.1f} us", flush=True)
-        for k in row["plain_top"]:
-            print(f"  plain kernel {k['launches']:.0f} launches "
-                  f"{k['us']:.1f} us: {k['kernel'][:150]}", flush=True)
-        rows.append(row)
-    return {"gates": rows, "step_pieces": _binfhe_step_pieces(binfhe, ctx,
-                                                              bk)}
+    return binfhe, ctx, sk, bk, keygen_s, rng, cts, wrappers
+
+
+def profile_binfhe_lmkcdey() -> dict:
+    """BINFHE at STD128_LMKCDEY: key generation, one AND (one ciphertext)
+    warm with its launches and busy share, then one step of each kind."""
+    binfhe, ctx, _, bk, keygen_s, _, cts, wrappers = _binfhe_keys(
+        "STD128_LMKCDEY", 83)
+    row = _binfhe_row("BINFHE STD128_LMKCDEY AND, one ciphertext",
+                      lambda: binfhe.eval_gate(ctx, "AND", bk, *cts),
+                      wrappers, 10, bootstrap_keygen_s=keygen_s)
+    return {"gates": [row], "steps": _lmk_step_pieces(binfhe, ctx, bk)}
+
+
+def profile_binfhe() -> dict:
+    """BINFHE at STD128 (chip_smoke.py phase 17): bootstrap-key generation
+    once, then a batched AND (B = 4) and a refresh (B = 1), warm, with the
+    launches of each wrapper, the device time of each kernel and the plain
+    kernels that take the most device time; then one external product taken
+    apart."""
+    binfhe, ctx, sk, bk, keygen_s, rng, cts, wrappers = _binfhe_keys(
+        "STD128", 61)
+    rows = [_binfhe_row(f"BINFHE STD128 {name}", fn, wrappers, TIMED_RUNS,
+                        bootstrap_keygen_s=keygen_s) for name, fn in (
+        ("AND, B = 4", lambda: binfhe.eval_gate_batch(
+            ctx, "AND", bk, cts * 2, cts[::-1] + cts)),
+        ("refresh, B = 1", lambda: binfhe.bootstrap(ctx, bk, cts[1])))]
+    ct = binfhe.encrypt_phase(ctx, sk, 9000, ctx.params.q_ks, rng)
+    large = _binfhe_row(
+        "BINFHE STD128 eval_sign_large (q_ks = 2^14, beta = 64)",
+        lambda: binfhe.eval_sign_large(ctx, bk, ct, 64), wrappers, 5)
+    return {"gates": rows, "eval_sign_large": large,
+            "step_pieces": _binfhe_step_pieces(binfhe, ctx, bk)}
 
 
 def profile_ntt_passes(label: str, moduli: tuple, lead: tuple) -> list:
@@ -602,7 +677,15 @@ SECTIONS = ("ops", "passes", "butterfly", "bootstrap", "bgv", "bfv",
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_ops: no CUDA device")
-    wanted = sys.argv[1:] or list(SECTIONS)
+    args = sys.argv[1:]
+    method = "GINX"
+    if "--method" in args:
+        i = args.index("--method")
+        method = args[i + 1] if i + 1 < len(args) else ""
+        del args[i:i + 2]
+        if method not in ("GINX", "LMKCDEY"):
+            sys.exit("profile_ops: --method takes GINX or LMKCDEY")
+    wanted = args or list(SECTIONS)
     unknown = set(wanted) - set(SECTIONS)
     if unknown:
         sys.exit(f"profile_ops: unknown sections {sorted(unknown)}; "
@@ -635,7 +718,8 @@ def main() -> None:
     if "threshold" in wanted:
         out["threshold"] = profile_threshold()
     if "binfhe" in wanted:
-        out["binfhe"] = profile_binfhe()
+        out["binfhe"] = profile_binfhe() if method == "GINX" else \
+            profile_binfhe_lmkcdey()
     print(json.dumps(out), flush=True)
 
 

@@ -19,9 +19,9 @@ A 64-bit residue tensor is stored as the JAX package stores it, as two
 Like the JAX package, ``load`` builds a BFV ciphertext with the default
 noise degree 1: the archive does not carry it. A BINFHE bootstrap key is
 stored in the JAX package's layout and dtypes (``ek_lo``/``ek_hi`` uint32
-planes of ``[T, V, 2dg, 2, N]``, ``ks_a``/``ks_b`` int32), whatever layout
-the port keeps it in. LMKCDEY keys are not ported yet: their archives raise
-a ``TypeError``.
+planes of ``[T, V, 2dg, 2, N]``, ``ks_a``/``ks_b`` int32; an LMKCDEY key's
+``ek`` of ``[n, 2dg, 2, N]`` and ``ak_lo``/``ak_hi`` of ``[2, dg, 2, N]``),
+whatever layout the port keeps it in.
 """
 
 from __future__ import annotations
@@ -37,10 +37,12 @@ import torch
 
 from .. import _build, dcrt, keyswitch
 from ..convert import (bootstrap_key_from_arrays, bootstrap_key_to_numpy,
+                       lmkcdey_key_from_arrays, lmkcdey_key_to_numpy,
                        tensor_to_u64, u64_to_tensor)
 from ..models import bfv, bgv, binfhe, ckks
 
 SERIAL_VERSION = 1
+_LMKCDEY_ARRAYS = ("ek_lo", "ek_hi", "ak_lo", "ak_hi", "ks_a", "ks_b")
 
 
 def _array_to_json(a: np.ndarray) -> dict:
@@ -74,7 +76,8 @@ def _moduli(ms) -> list:
 
 def save(obj: Any, path, fmt: str = "binary") -> None:
     """Write `obj` (a context, ciphertext, PublicKey, SecretKey or KSKey of
-    the port, or a BINFHE context, LWE ciphertext, secret or bootstrap key)
+    the port, or a BINFHE context, LWE ciphertext, secret, bootstrap key or
+    LMKCDEY key)
     to `path` in the JAX package's archive format."""
     assert fmt in ("binary", "json"), fmt
     arrays: dict = {}
@@ -133,6 +136,9 @@ def save(obj: Any, path, fmt: str = "binary") -> None:
         meta.update(kind="binfhe_bootstrap_key")
         arrays.update(zip(("ek_lo", "ek_hi", "ks_a", "ks_b"),
                           bootstrap_key_to_numpy(obj)))
+    elif t == "LMKCDEYKey":
+        meta.update(kind="binfhe_lmkcdey_key")
+        arrays.update(zip(_LMKCDEY_ARRAYS, lmkcdey_key_to_numpy(obj)))
     else:
         raise TypeError(f"don't know how to serialize {mod}.{t}")
 
@@ -164,9 +170,6 @@ def load(path, device=None) -> Any:
         meta = json.loads(bytes(arrays.pop("__meta__")).decode())
     assert meta["version"] <= SERIAL_VERSION, "newer serial format"
     kind = meta["kind"]
-    if kind == "binfhe_lmkcdey_key":
-        raise TypeError("cannot load a binfhe_lmkcdey_key archive: LMKCDEY "
-                        "is not ported to openfhe_tpu_torch yet")
     device = _build.resolve_device(device)
     if kind in ("ckks_context", "bgv_context"):
         ctx_type, params_type = (
@@ -215,4 +218,7 @@ def load(path, device=None) -> Any:
         return bootstrap_key_from_arrays(arrays["ek_lo"], arrays["ek_hi"],
                                          arrays["ks_a"], arrays["ks_b"],
                                          device)
+    if kind == "binfhe_lmkcdey_key":
+        return lmkcdey_key_from_arrays(*(arrays[k] for k in _LMKCDEY_ARRAYS),
+                                       device)
     raise TypeError(f"unknown serialized kind {kind}")

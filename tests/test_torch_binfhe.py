@@ -265,7 +265,9 @@ def test_context_refusals():
 
 def test_lmkcdey_stops_after_its_secret():
     """A LMKCDEY context and its Gaussian secret equal the JAX package's;
-    its key and blind rotation are not ported and say so."""
+    what follows the secret (the key, the blind rotation, the gates) is
+    held equal in ``tests/test_torch_binfhe_lp.py``. Here: bootstrap_keygen
+    gives the LMKCDEY key in the port's layout."""
     ctx = binfhe.gen_context("TOY_LMKCDEY", "cpu")
     for name in ("TOY_LMKCDEY", "STD128_LMKCDEY"):
         sk = binfhe.keygen(binfhe.gen_context(name, "cpu"),
@@ -273,11 +275,12 @@ def test_lmkcdey_stops_after_its_secret():
         jsk = jb.keygen(jb.gen_context(name), np.random.default_rng(3))
         assert np.array_equal(sk.s_lwe, jsk.s_lwe)
         assert np.array_equal(sk.z_ring, jsk.z_ring)
-    with pytest.raises(NotImplementedError, match="LMKCDEY"):
-        binfhe.bootstrap_keygen(ctx, sk, np.random.default_rng(3))
-    a = torch.zeros((1, ctx.params.n_lwe), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="LMKCDEY"):
-        binfhe._bootstrap_core(ctx, None, a, [0])
+    p = ctx.params
+    sk = binfhe.keygen(ctx, np.random.default_rng(3))
+    bk = binfhe.bootstrap_keygen(ctx, sk, np.random.default_rng(3))
+    assert isinstance(bk, binfhe.LMKCDEYKey)
+    assert tuple(bk.ek.shape) == (p.n_lwe, 2, 2 * p.dg, 1, p.N)
+    assert tuple(bk.ak.shape) == (2, 2, p.dg, 1, p.N)
 
 
 def test_multi_gates_refuse_bad_inputs(flows):

@@ -296,3 +296,133 @@ def test_binfhe_on_the_card_equals_the_cpu(cuda, name):
     assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
     assert gpu_out == cpu_out
     assert [bit for _, bit in cpu_out] == [1, 1, 1, 0, 1, 1]
+
+
+def _switch_fhew_q():
+    return nbtheory.first_prime(27, 2 * 256)
+
+
+# the NTT shapes of chip_smoke.py phases 18-19: LMKCDEY's external digits
+# [2dg, 1, N], automorphism digits [dg, 1, N], halves [2, 1, N] and key
+# errors [n*2dg, 1, N] at STD128_LMKCDEY; scheme switching's FHEW set
+# (N = 256): digits and halves of one LUT, the key's errors [n*2*2dg]
+@pytest.mark.parametrize("which,rows,n", [
+    *[("STD128_LMKCDEY", r, 1024) for r in (1, 2, 3, 6, 2676)],
+    *[("switch", r, 256) for r in (1, 2, 6, 96)]])
+def test_ntt_kernel_at_lmkcdey_and_switch_shapes(cuda, which, rows, n):
+    moduli = ((_switch_fhew_q(),) if which == "switch"
+              else (_binfhe_q(which),))
+    x = _uniform(moduli, (rows, n), seed=rows + n + 1)
+    t_cpu = ntt.tables(n, moduli, "cpu")
+    got = ntt.forward(x.to(cuda), moduli)
+    assert torch.equal(got.cpu(), ntt.forward_plain(x, t_cpu))
+    back = ntt.inverse(got, moduli)
+    assert torch.equal(back.cpu(), x)
+
+
+@pytest.mark.parametrize("which,ndig,n,key_rows,rows", [
+    ("STD128_LMKCDEY", 6, 1024, 1, (0,)),        # against ek[j]
+    ("STD128_LMKCDEY", 3, 1024, 1, (0,)),        # against an automorphism key
+    ("switch", 6, 256, 2, (0,)), ("switch", 6, 256, 2, (1,))])
+def test_ks_inner_product_at_lmkcdey_and_switch_shapes(cuda, which, ndig, n,
+                                                       key_rows, rows):
+    moduli = ((_switch_fhew_q(),) if which == "switch"
+              else (_binfhe_q(which),))
+    digits = _uniform(moduli, (ndig, 1, n), seed=4)[..., 0, :]
+    kb = _uniform(moduli, (ndig, key_rows, n), seed=5)[..., 0, :]
+    ka = _uniform(moduli, (ndig, key_rows, n), seed=6)[..., 0, :]
+    want = elementwise.ks_inner_product(
+        digits, kb, ka, rows, modular.make_mod_consts(moduli, "cpu"))
+    got = elementwise.ks_inner_product(
+        digits.to(cuda), kb.to(cuda), ka.to(cuda), rows,
+        modular.make_mod_consts(moduli, cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_scheme_switching_chain_on_the_card(cuda):
+    """The NTT and ks_inner_product at scheme switching's CKKS chain at
+    n = 2^16 (14 towers + 5 special primes, dnum 3)."""
+    from openfhe_tpu_torch.models import ckks
+    ctx = ckks.gen_context(ckks.CKKSParams(
+        ring_dim=1 << 16, mult_depth=13, scaling_mod_size=35,
+        first_mod_size=50, dnum=3, secret_hw=64), "cpu")
+    moduli = ctx.q_moduli + ctx.p_moduli
+    n = 1 << 16
+    x = _uniform(moduli, (3, n), seed=9)
+    t_cpu = ntt.tables(n, moduli, "cpu")
+    got = ntt.forward(x.to(cuda), moduli)
+    assert torch.equal(got.cpu(), ntt.forward_plain(x, t_cpu))
+    rows = list(range(len(moduli)))
+    kb, ka = _uniform(moduli, (3, n), seed=10), _uniform(moduli, (3, n), 11)
+    want = elementwise.ks_inner_product(
+        x, kb, ka, rows, modular.make_mod_consts(moduli, "cpu"))
+    got = elementwise.ks_inner_product(
+        x.to(cuda), kb.to(cuda), ka.to(cuda), rows,
+        modular.make_mod_consts(moduli, cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_large_precision_and_lmkcdey_on_the_card_equal_the_cpu(cuda):
+    """TOY_LP's floor, large sign and decomposition and TOY_LMKCDEY's key,
+    an AND batch and a LUT on the card equal the CPU run's."""
+    from openfhe_tpu_torch.models import binfhe
+    assert binfhe.gen_context("TOY_LMKCDEY").device.type == "cuda"
+    runs = []
+    for device in (cuda, "cpu"):
+        rng = np.random.default_rng(13)
+        ctx = binfhe.gen_context("TOY_LP", device)
+        sk = binfhe.keygen(ctx, rng)
+        bk = binfhe.bootstrap_keygen(ctx, sk, rng)
+        ct = binfhe.encrypt_phase(ctx, sk, 9000, ctx.params.q_ks, rng)
+        outs = [binfhe.eval_floor(ctx, bk, ct, 64),
+                binfhe.eval_sign_large(ctx, bk, ct, 64),
+                *binfhe.eval_decomp(ctx, bk, ct, 64)]
+        dec = [binfhe.decrypt_zp(ctx, sk, outs[1], 2)]
+        ctx = binfhe.gen_context("TOY_LMKCDEY", device)
+        sk = binfhe.keygen(ctx, rng)
+        mk = binfhe.bootstrap_keygen(ctx, sk, rng)
+        cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
+        gates = binfhe.eval_gate_batch(ctx, "AND", mk, cts * 2,
+                                       cts[::-1] + cts)
+        lut = binfhe.eval_func(ctx, mk, binfhe.encrypt_zp(ctx, sk, 5, 8, rng),
+                               [0, 1, 2, 3, 0, 7, 6, 5], 8)
+        outs += gates + [lut]
+        dec += [binfhe.decrypt(ctx, sk, g) for g in gates]
+        dec.append(binfhe.decrypt_zp(ctx, sk, lut, 8))
+        runs.append(([bk.ek.cpu(), mk.ek.cpu(), mk.ak.cpu(), mk.ks_a.cpu()]
+                     + [o.a.cpu() for o in outs],
+                     [(o.b, o.modulus) for o in outs], dec))
+    (gpu, gpu_out, gpu_dec), (cpu, cpu_out, cpu_dec) = runs
+    assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
+    assert gpu_out == cpu_out and gpu_dec == cpu_dec
+    assert cpu_dec == [1, 0, 0, 0, 1, 7]
+
+
+def test_scheme_switching_on_the_card_equals_the_cpu(cuda):
+    """Keys, CKKS -> FHEW and FHEW -> CKKS at ring 512 with the FHEW set of
+    examples/scheme_switching.py on the card equal the CPU run's."""
+    from openfhe_tpu_torch.models import binfhe, ckks
+    from openfhe_tpu_torch.models import scheme_switch as ss
+    runs = []
+    for device in (cuda, "cpu"):
+        rng = np.random.default_rng(17)
+        ctx = ckks.gen_context(ckks.CKKSParams(
+            ring_dim=512, mult_depth=13, scaling_mod_size=35,
+            first_mod_size=50, dnum=3, secret_hw=64), device)
+        pk, sk = ckks.keygen(ctx, rng)
+        bctx = binfhe.gen_context(binfhe.BinFHEParams(
+            n_lwe=8, N=256, Q=_switch_fhew_q(), q_ks=1 << 14, log_bg=10,
+            log_bks=5), device)
+        sk_f = binfhe.keygen(bctx, rng)
+        pre = ss.setup(ctx, bctx, slots=8, cheb_deg=56)
+        keys = ss.keygen(ctx, bctx, pre, sk, sk_f, pk, rng)
+        ct = ckks.encrypt(ctx, pk, np.tile(np.arange(8.0), 32), rng)
+        lwes = ss.eval_ckks_to_fhew(ctx, bctx, pre, keys, ct, 8, 8)
+        back = ss.eval_fhew_to_ckks(ctx, bctx, pre, keys, lwes[:2])
+        runs.append(([keys.evk.b.cpu(), keys.lwe_ks_a.cpu()]
+                     + [c.a.cpu() for c in lwes]
+                     + [p.data.cpu() for p in back.polys],
+                     [binfhe.decrypt_zp(bctx, sk_f, c, 8) for c in lwes]))
+    (gpu, gpu_dec), (cpu, cpu_dec) = runs
+    assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
+    assert gpu_dec == cpu_dec == list(range(8))

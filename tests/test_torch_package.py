@@ -1,7 +1,7 @@
 """The port stands apart from JAX: no module of ``openfhe_tpu_torch`` imports
 jax or anything of ``openfhe_tpu``, the slices (the CKKS main path, the
-bootstrap, BGV and BFV, threshold FHE, PRE, the archives and BINFHE) run
-on the CPU
+bootstrap, BGV and BFV, threshold FHE, PRE, the archives, BINFHE with
+LMKCDEY and scheme switching) run on the CPU
 (when asked to) without loading either, and the CUDA-only paths raise
 instead of falling back when they get what they do not take or find no
 card.
@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from openfhe_tpu_torch import _build, convert
-from openfhe_tpu_torch.models import bfv, bgv, binfhe, ckks, multiparty, pre
+from openfhe_tpu_torch.models import (bfv, bgv, binfhe, ckks, multiparty,
+                                      pre, scheme_switch)
 from openfhe_tpu_torch.ops import modular, ntt, rns
 from openfhe_tpu_torch.utils import serial
 
@@ -42,7 +43,7 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 SLICE_MODULES = ["ckks.py", "ckks_advanced.py", "ckks_bootstrap.py",
                  "ckks_fft.py", "bgv.py", "bfv.py", "rns.py", "keyswitch.py",
                  "encoding.py", "multiparty.py", "pre.py", "serial.py",
-                 "binfhe.py"]
+                 "binfhe.py", "scheme_switch.py"]
 
 
 def test_guard_covers_every_slice_module():
@@ -139,6 +140,26 @@ bk = binfhe.bootstrap_keygen(ctx, sk, rng)
 cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
 outs = binfhe.eval_gate_batch(ctx, "XOR", bk, cts * 2, cts[::-1] + cts)
 print([binfhe.decrypt(ctx, sk, o) for o in outs])
+ctx = binfhe.gen_context("TOY_LMKCDEY", "cpu")
+sk = binfhe.keygen(ctx, rng)
+bk = binfhe.bootstrap_keygen(ctx, sk, rng)
+one = binfhe.encrypt(ctx, sk, 1, rng)
+lmk = binfhe.decrypt(ctx, sk, binfhe.eval_gate(ctx, "AND", bk, one, one))
+from openfhe_tpu_torch.models import scheme_switch as ss
+from openfhe_tpu_torch.utils import nbtheory
+fctx = binfhe.gen_context(binfhe.BinFHEParams(
+    n_lwe=8, N=256, Q=nbtheory.first_prime(27, 512), q_ks=1 << 14,
+    log_bg=10, log_bks=5), "cpu")
+fsk = binfhe.keygen(fctx, rng)
+ctx = ckks.gen_context(ckks.CKKSParams(ring_dim=64, mult_depth=13,
+                                       scaling_mod_size=35, first_mod_size=50,
+                                       dnum=3, secret_hw=16), "cpu")
+pk, sk = ckks.keygen(ctx, rng)
+sw = ss.setup(ctx, fctx, slots=8, cheb_deg=8)
+keys = ss.keygen(ctx, fctx, sw, sk, fsk, pk, rng)
+ct = ckks.encrypt(ctx, pk, np.tile(np.arange(8.0), 4), rng)
+lwes = ss.eval_ckks_to_fhew(ctx, fctx, sw, keys, ct, 8, 8)
+print(lmk, [binfhe.decrypt_zp(fctx, fsk, c, 8) for c in lwes])
 print(before, "jax" in sys.modules)
 print(sorted(m for m in sys.modules
              if m == "openfhe_tpu" or m.startswith("openfhe_tpu.")))
@@ -150,11 +171,13 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    err, booted, exact, threshold, gates, flags, jax_package = \
-        proc.stdout.strip().splitlines()[-7:]
+    err, booted, exact, threshold, gates, switched, flags, jax_package = \
+        proc.stdout.strip().splitlines()[-8:]
     assert exact == "True True", "BGV or BFV did not decrypt exactly"
     assert threshold == "True True", "threshold or PRE did not decrypt"
     assert gates == "[1, 1, 0, 0]", "the BINFHE XOR gates did not decrypt"
+    assert switched == "1 [0, 1, 2, 3, 4, 5, 6, 7]", \
+        "the LMKCDEY AND or the CKKS -> FHEW switch did not decrypt"
     assert float(err) < 1e-6
     towers, boot_err, factors = booted.split()
     assert int(towers) > 3 and float(boot_err) < 5e-2 and factors == "2"
@@ -192,6 +215,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     params = ckks.CKKSParams(ring_dim=64, mult_depth=1)
     zeros = np.zeros((1, 4), dtype=np.uint32)
     ctx = ckks.gen_context(params, "cpu")
+    fctx = binfhe.gen_context("TOY", "cpu")
     rng = np.random.default_rng(3)
     pk, sk = multiparty.keygen_lead(ctx, rng)
     ct = ckks.encrypt(ctx, pk, [0.5], rng)
@@ -206,6 +230,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
                  lambda: bgv.gen_context(bgv.BGVParams(ring_dim=64)),
                  lambda: bfv.gen_context(bfv.BFVParams(ring_dim=64)),
                  lambda: binfhe.gen_context("TOY"),
+                 lambda: binfhe.gen_context("TOY_LMKCDEY"),
+                 lambda: scheme_switch.setup(ckks.gen_context(params), fctx,
+                                             slots=8),
+                 lambda: scheme_switch.keygen(
+                     ckks.gen_context(params), fctx, None, sk, None, pk,
+                     rng),
                  lambda: convert.u64_to_tensor(zeros, zeros),
                  lambda: modular.int_tensor([1, 2]),
                  lambda: modular.make_mod_consts([97]),

@@ -1,17 +1,16 @@
 """The port's ``utils/serial.py`` against the JAX package's archive format.
 
 Every kind the port supports (the three contexts, the three ciphertexts,
-PublicKey, SecretKey and KSKey, and BINFHE's context, LWE ciphertext, secret
-and bootstrap key) goes both ways in both flavours: written by
+PublicKey, SecretKey and KSKey, and BINFHE's context, LWE ciphertext, secret,
+bootstrap key and LMKCDEY key) goes both ways in both flavours: written by
 ``openfhe_tpu.utils.serial.save`` and read by the port's ``load``, and
 written by the port's ``save`` and read by the JAX package's ``load``; each
 loaded object must equal the original through ``convert``. The JSON
 archives of the two packages are the same bytes, and the binary ones hold
 the same arrays and metadata. The objects are made by the port on the CPU
 and handed to the JAX package's constructors as uint32 planes, so no JAX
-arithmetic runs. A LMKCDEY key archive raises a ``TypeError`` in the port
-(LMKCDEY is not ported yet), and ``load`` without a device raises where
-there is no CUDA device.
+arithmetic runs. ``load`` without a device raises where there is no CUDA
+device.
 """
 
 import json
@@ -36,7 +35,7 @@ KINDS = ["ckks_context", "ckks_composite_context", "bgv_context",
          "bfv_context", "ckks_ciphertext", "bgv_ciphertext",
          "bfv_ciphertext", "public_key", "secret_key", "ks_key",
          "binfhe_context", "lwe_ciphertext", "binfhe_secret",
-         "binfhe_bootstrap_key"]
+         "binfhe_bootstrap_key", "binfhe_lmkcdey_key"]
 CKKS = dict(ring_dim=64, mult_depth=2, scaling_mod_size=40,
             first_mod_size=50, dnum=2)
 BGV = dict(ring_dim=64, mult_depth=1, plaintext_modulus=12289, mod_size=50,
@@ -104,6 +103,10 @@ def objects():
     lbk = binfhe.bootstrap_keygen(lctx, lsk, rng)
     out["binfhe_bootstrap_key"] = (lbk, jbinfhe.BootstrapKey(
         *convert.bootstrap_key_to_numpy(lbk)))
+    mctx = binfhe.gen_context("TOY_LMKCDEY", "cpu")
+    mbk = binfhe.bootstrap_keygen(mctx, binfhe.keygen(mctx, rng), rng)
+    out["binfhe_lmkcdey_key"] = (mbk, jbinfhe.LMKCDEYKey(
+        *convert.lmkcdey_key_to_numpy(mbk)))
     return out
 
 
@@ -126,6 +129,7 @@ def _from_jax(kind, obj):
             "lwe_ciphertext": convert.lwe_ciphertext_from_jax,
             "binfhe_secret": lambda o, _: convert.binfhe_secret_from_jax(o),
             "binfhe_bootstrap_key": convert.bootstrap_key_from_jax,
+            "binfhe_lmkcdey_key": convert.lmkcdey_key_from_jax,
             }[kind](obj, "cpu")
 
 
@@ -154,6 +158,10 @@ def _equal(kind, got, want):
     elif kind == "binfhe_bootstrap_key":
         for g, w in ((got.ek, want.ek), (got.ks_a, want.ks_a),
                      (got.ks_b, want.ks_b)):
+            assert torch.equal(g, w)
+    elif kind == "binfhe_lmkcdey_key":
+        for g, w in ((got.ek, want.ek), (got.ak, want.ak),
+                     (got.ks_a, want.ks_a), (got.ks_b, want.ks_b)):
             assert torch.equal(g, w)
     else:
         assert len(got.polys) == len(want.polys)
@@ -225,19 +233,11 @@ def test_loaded_objects_decrypt_the_same(objects, tmp_path):
 
 
 def test_binfhe_archives_raise(objects, tmp_path):
-    """Of the BINFHE kinds only a LMKCDEY key archive still raises (LMKCDEY
-    is not ported); an object the format does not know raises too. The
-    loaded LWE ciphertext and secret decrypt as the originals."""
+    """An object the format does not know raises. The loaded LWE ciphertext
+    and secret decrypt as the originals."""
     ct, sk = objects["lwe_ciphertext"][0], objects["binfhe_secret"][0]
     ctx = objects["binfhe_context"][0]
-    zeros = np.zeros((1, 2), dtype=np.uint32)
-    lmk = jbinfhe.LMKCDEYKey(zeros, zeros, zeros, zeros,
-                             zeros.astype(np.int32), zeros.astype(np.int32))
     for fmt in FORMATS:
-        path = tmp_path / f"lmk.{fmt}"
-        jserial.save(lmk, str(path), fmt)
-        with pytest.raises(TypeError, match="LMKCDEY is not ported"):
-            serial.load(path, "cpu")
         serial.save(ct, tmp_path / "ct", fmt)
         serial.save(sk, tmp_path / "sk", fmt)
         assert binfhe.decrypt(ctx, serial.load(tmp_path / "sk", "cpu"),
