@@ -58,10 +58,25 @@ flow held to the JAX tests' bounds against what its LWE inputs encrypt (the
 CKKS -> FHEW samples' noise at this ring is logged), and phase 20 holds
 TOY_LP, TOY_LMKCDEY (with the LMKCDEY key's archives) and scheme switching
 at n = 512 on the card equal to the CPU run, every flow at n = 512 within
-the JAX tests' bounds against the plaintext. The line before the last is
+the JAX tests' bounds against the plaintext. Phase 21 runs MP12 lattice
+trapdoors at n = 8192 over one 50-bit tower, base 2: trapdoor_gen,
+gauss_samp and the exact gauss_samp_exact, each preimage x with
+apply_A(A, x) == u exactly and within the JAX tests' shortness bounds, the
+G-lattice samplers' congruence, and the same flow at n = 128 on the card
+equal to the CPU in every A, T and x. Phase 22 starts a one-rank NCCL group
+(NCCL puts no two ranks on one GPU; several ranks are tested on the CPU
+with gloo), holds the distributed four-step NTT equal to the NTT at
+[3, 11, 2^16] and [11, 2^16], runs the main path (MultRelin -> rescale ->
+Rotate) routed through it with dcrt.set_distributed_ntt, equal to the
+unrouted run, with the key switch's four NTTs counted on the routed path,
+checks tower_psum, and wraps one MultRelin in profiling.timed (at least
+its CUDA-event time) and profiling.trace (the trace names the NTT and MAC
+kernels). The kernels are held against their twins at both phases' shapes
+too. The line before the last is
 a JSON object with each kernel's launches (on the main path, in one
 bootstrap, in phase 8, in phase 9, in phases 11-13, in phase 14, in phase
-17, in phase 18 and in phase 19), error against its twin, times (L2-warm
+17, in phase 18, in phase 19, in phase 21 and on phase 22's routed path),
+error against its twin, times (L2-warm
 ``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
 least time the card could take for the call; the last line is the JSON
 device summary. There is no CPU path:
@@ -132,7 +147,14 @@ SOURCES = {"ntt_forward": ("csrc/ntt.cu", f"{_NTT_PALLAS}:282"),
            "fused_mac_mod": ("csrc/mac.cu", _MAC_PALLAS)}
 
 
+_START = time.perf_counter()
+
+
 def log(*a):
+    """Print at once; a phase header ("[N] ...") also gets the seconds since
+    the script started."""
+    if a and str(a[0]).startswith("["):
+        a = a + (f"(at {time.perf_counter() - _START:.1f} s)",)
     print(*a, flush=True)
 
 
@@ -337,9 +359,15 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
     ``shapes``."""
     from openfhe_tpu_torch.models import binfhe
     from openfhe_tpu_torch.ops import elementwise, modular, ntt
+    from openfhe_tpu_torch.utils import nbtheory
 
     rng = np.random.default_rng(3)
     n, nf = RING_DIM, FHE_RING_DIM
+    # phase 21's tower; phase 22's four-step columns [n2, ..., L, n1] and
+    # rows [n1, ..., L, n2] on one rank (n1 = n2 at n = 2^16)
+    q_td = (nbtheory.first_prime(TRAPDOOR_BITS, 2 * TRAPDOOR_N),)
+    td_label = f"[1, {TRAPDOOR_N}] {TRAPDOOR_BITS}-bit trapdoor"
+    n1, n2 = ntt.split_factors(n)
     qp = ctx60.q_moduli + ctx60.p_moduli
     bq = ctx_boot.q_moduli
     bqp = bq + ctx_boot.p_moduli
@@ -362,6 +390,11 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
              ("[6, 11, 65536] 60-bit QP (key share)", qp, (6,), n),
              *binfhe_ntt_cases(binfhe),
              (sw_label, swqp, (3,), n),
+             (td_label, q_td, (), TRAPDOOR_N),
+             (f"[{n2}, 3, 11, {n1}] 60-bit QP four-step columns and rows",
+              qp, (n2, 3), n1),
+             (f"[{n2}, 11, {n1}] 60-bit QP four-step columns and rows", qp,
+              (n2,), n1),
              ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
     shapes = {name: [] for name in SOURCES}
     for label, moduli, lead, dim in cases:
@@ -422,6 +455,7 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
             (f"[{6 * len(qp)}, 65536] 60-bit QP x 6 (key share)", qp * 6, n),
             (f"[{len(ctx_sw.q_moduli)}, 65536] 35/51-bit scheme-switching Q",
              ctx_sw.q_moduli, n),
+            (td_label, q_td, TRAPDOOR_N),
             ("[11, 65536] 60-bit QP", qp, n)):
         mod = modular.make_mod_consts(moduli, device)
         x, y, acc = (uniform(moduli, (dim,), rng, device) for _ in range(3))
@@ -1820,6 +1854,266 @@ def lp_against_cpu(device):
         f"archives equal; card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
 
 
+# Phase 21: MP12 trapdoors at n = 8192 (below the exact sampler's N_MAX =
+# 16384) over one 50-bit tower, base 2 (k = 50), the exact sampler's SIGMA;
+# then the same flow at n = 128 on the card and on the CPU
+TRAPDOOR_N = 8192
+TRAPDOOR_BITS = 50
+TRAPDOOR_BASE = 2
+TRAPDOOR_SMALL_N = 128
+TRAPDOOR_SEED = 97
+# Phase 22: the distributed four-step at the main path's shapes, and the
+# main path routed through it
+DNTT_MIN_N = 4096
+DNTT_SEED = 7
+DNTT_WARM = 4          # warm repetitions of the main path, unrouted and routed
+# the kernels' names in csrc/ntt.cu and csrc/mac.cu, looked for in the trace
+TRACE_KERNELS = ("col_pass", "row_pass", "ks_inner_product_kernel",
+                 "fused_mac_kernel")
+
+
+def trapdoor_flow(td, n, device, seed, timed):
+    """trapdoor_gen, a uniform u, gauss_samp and gauss_samp_exact at ring n
+    over one TRAPDOOR_BITS-bit tower on `device`, from `seed`."""
+    from openfhe_tpu_torch import dcrt
+    from openfhe_tpu_torch.utils import nbtheory, sampling
+
+    rng = np.random.default_rng(seed)
+    q = nbtheory.first_prime(TRAPDOOR_BITS, 2 * n)
+    base = TRAPDOOR_BASE
+    A, T = timed("trapdoor_gen", lambda: td.trapdoor_gen(
+        n, q, base, td.SIGMA, rng, device))
+    basis = dcrt.RnsBasis(n, (q,))
+    u = dcrt.from_int_rows(basis, sampling.uniform_rns_rows(n, (q,), rng),
+                           dcrt.Format.EVAL, device)
+    x = timed("gauss_samp", lambda: td.gauss_samp(n, q, base, A, T, u,
+                                                  td.SIGMA, rng))
+    x_exact = timed("gauss_samp_exact", lambda: td.gauss_samp_exact(
+        n, q, base, A, T, u, rng))
+    return dict(q=q, A=A, T=T, u=u, x=x, x_exact=x_exact)
+
+
+def trapdoor_states(run):
+    polys = run["A"] + run["T"].r + run["T"].e + run["x"] + run["x_exact"]
+    return [p.data.cpu() for p in polys]
+
+
+def trapdoor_phase(device):
+    """Phase 21: trapdoors at n = TRAPDOOR_N on the card, A.x == u exactly
+    for both samplers within the JAX tests' shortness bounds, the G-lattice
+    samplers' congruence; then n = TRAPDOOR_SMALL_N on the card equal to the
+    CPU. Returns the launches of the n = TRAPDOOR_N run."""
+    from openfhe_tpu_torch.models import trapdoor as td
+
+    n, base = TRAPDOOR_N, TRAPDOOR_BASE
+    reset_counters()
+    times = {}
+    run = trapdoor_flow(td, n, device, TRAPDOOR_SEED, stage_timer(times))
+    launches = read_counters()
+    q, A, T = run["q"], run["A"], run["T"]
+    k = len(T.r)
+    log(f"  n = {n}, q = {q} ({q.bit_length()} bits), base {base}, k = {k}")
+    log("  stage seconds: " + ", ".join(f"{k_} {v:.4f}"
+                                        for k_, v in times.items()))
+    log(f"  launches: {launches}")
+    s = td.spectral_bound(n, k, base)
+    for name, bound_ in (("x", q / 1000.0), ("x_exact", 6 * s)):
+        x = run[name]
+        need(len(x) == k + 2, f"phase 21: {name} has {len(x)} elements")
+        need(torch.equal(td.apply_A(A, x).data, run["u"].data),
+             f"phase 21: apply_A(A, {name}) != u")
+        worst = max(float(np.abs(td._poly_to_reals(xi, q)).max())
+                    for xi in x)
+        log(f"  {name}: apply_A(A, x) == u; max |coefficient| {worst:.0f} "
+            f"(bound {bound_:.0f})")
+        need(worst < bound_, f"phase 21: {name} is not short")
+    rng = np.random.default_rng(TRAPDOOR_SEED + 1)
+    v = rng.integers(0, q, size=n, dtype=np.int64)
+    z = td._g_preimage(v, q, base, k, td.SIGMA, rng)
+    zq = td.gauss_samp_gq(v, (base + 1) * td.SIGMA, k, q, base, rng)
+    need(td._g_congruent(z, v, q, base, k)
+         and td._g_congruent(zq, v, q, base, k),
+         "phase 21: a G-lattice sample misses its coset")
+    log(f"  G-lattice congruence holds: _g_preimage max |z| "
+        f"{int(np.abs(z).max())}, gauss_samp_gq {int(np.abs(zq).max())}")
+    missing = [k_ for k_ in ("ntt_forward", "ntt_inverse", "fused_mac_mod")
+               if launches[k_] == 0]
+    need(not missing, f"phase 21: kernels never launched: {missing}")
+
+    small = {}
+    for where in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        small[where.type] = trapdoor_states(trapdoor_flow(
+            td, TRAPDOOR_SMALL_N, where, TRAPDOOR_SEED, untimed))
+        log(f"  n = {TRAPDOOR_SMALL_N} on {where.type}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    same_tensors(f"phase 21: n = {TRAPDOOR_SMALL_N} on the card against "
+                 "the CPU", small[device.type], small["cpu"])
+    log(f"  n = {TRAPDOOR_SMALL_N}: every A, T and x on the card equals "
+        "the CPU's")
+    return launches
+
+
+def event_ms(fn, reps=5):
+    """Mean device time of fn() between CUDA events over `reps` calls
+    after a warm-up (no graph: the four-step's collectives run in it)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def distributed_phase(ctx, device, trace_dir):
+    """Phase 22: on a one-rank process group (NCCL on the card; NCCL puts
+    no two ranks on one GPU), the four-step NTT against the NTT at the main
+    path's shapes, the main path (MultRelin -> rescale -> Rotate) routed
+    through it against the unrouted run, the explicit collectives, and one
+    MultRelin under profiling.timed and profiling.trace. Returns the routed
+    path's launches."""
+    import torch.distributed as dist
+    from openfhe_tpu_torch import dcrt
+    from openfhe_tpu_torch.models import ckks
+    from openfhe_tpu_torch.ops import ntt
+    from openfhe_tpu_torch.parallel import collectives, dntt
+    from openfhe_tpu_torch.parallel import mesh as mesh_mod
+    from openfhe_tpu_torch.utils import profiling
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            init_method=f"file://{trace_dir}/pg")
+    try:
+        mesh = mesh_mod.make_mesh()
+        log(f"  {backend} group of 1 rank, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        n = ctx.n
+        n1, n2 = dntt.split_factors(n)
+        qp = ctx.q_moduli + ctx.p_moduli
+        rng = np.random.default_rng(DNTT_SEED)
+        for lead in ((3,), ()):
+            x = uniform(qp, lead + (n,), rng, device)
+            label = f"{list(lead + (len(qp), n))}"
+            y = dntt.four_step_forward(x, n1, n2, qp, mesh=mesh)
+            need(torch.equal(y, ntt.forward(x, qp)),
+                 f"phase 22: four_step_forward {label} != ntt.forward")
+            need(torch.equal(dntt.four_step_inverse(y, n1, n2, qp, mesh=mesh),
+                             ntt.inverse(y, qp)),
+                 f"phase 22: four_step_inverse {label} != ntt.inverse")
+            fwd = event_ms(lambda: dntt.four_step_forward(x, n1, n2, qp,
+                                                          mesh=mesh))
+            inv = event_ms(lambda: dntt.four_step_inverse(y, n1, n2, qp,
+                                                          mesh=mesh))
+            one = event_ms(lambda: ntt.forward(x, qp))
+            log(f"  four-step {label} torch.equal to ntt.forward/inverse; "
+                f"device ms forward {fwd:.4f}, inverse {inv:.4f}, "
+                f"one-launch NTT {one:.4f}")
+        x = uniform(qp, (n,), rng, device)
+        need(torch.equal(collectives.four_step_forward_shard_map(x, qp, mesh),
+                         ntt.forward(x, qp)),
+             "phase 22: four_step_forward_shard_map != ntt.forward")
+        parts = uniform((1 << 40,) * len(qp), (n,), rng, device)
+        need(torch.equal(collectives.tower_psum(parts, mesh),
+                         parts.sum(dim=0)),
+             "phase 22: tower_psum != the local sum")
+        log("  four_step_forward_shard_map and tower_psum equal their "
+            "local results")
+
+        rng = np.random.default_rng(DNTT_SEED)
+        pk, sk = ckks.keygen(ctx, rng)
+        evk = ckks.relin_keygen(ctx, sk, rng)
+        rk = ckks.rot_keygen(ctx, sk, [1], rng)[1]
+        v1, v2 = rng.uniform(-1, 1, (2, n // 2))
+        ct1 = ckks.encrypt(ctx, pk, v1, rng)
+        ct2 = ckks.encrypt(ctx, pk, v2, rng)
+
+        def step(timed):
+            prod = timed("eval_mult_relin",
+                         lambda: ckks.eval_mult_relin(ct1, ct2, evk))
+            res = timed("rescale", lambda: ckks.rescale_ctx(ctx, prod))
+            rot = timed("eval_rotate", lambda: ckks.eval_rotate(res, 1, rk))
+            return poly_states(prod, res, rot), rot
+
+        plain_times, plain_calls = {}, {}
+        want, _ = step(stage_clock(plain_times, plain_calls))
+        for _ in range(DNTT_WARM):
+            step(stage_clock(plain_times, plain_calls))
+        dcrt.set_distributed_ntt(mesh, min_n=DNTT_MIN_N)
+        try:
+            before = (dntt.four_step_forward.distributed_calls,
+                      dntt.four_step_inverse.distributed_calls)
+            reset_counters()
+            times, calls = {}, {}
+            got, rot = step(stage_clock(times, calls))
+            launches = read_counters()
+            routed = (dntt.four_step_forward.distributed_calls - before[0],
+                      dntt.four_step_inverse.distributed_calls - before[1])
+            for _ in range(DNTT_WARM):
+                step(stage_clock(times, calls))
+            ks = (dntt.four_step_forward.distributed_calls,
+                  dntt.four_step_inverse.distributed_calls)
+            ckks.eval_mult_relin(ct1, ct2, evk)
+            ks = (dntt.four_step_forward.distributed_calls - ks[0],
+                  dntt.four_step_inverse.distributed_calls - ks[1])
+        finally:
+            dcrt.set_distributed_ntt(None)
+        same_tensors("phase 22: the routed main path against the unrouted",
+                     got, want)
+        out = ckks.decrypt(ctx, sk, rot, num_slots=n // 2)
+        err = float(np.max(np.abs(out.real - np.roll(v1 * v2, -1))))
+        log(f"  routed MultRelin -> rescale -> Rotate torch.equal to the "
+            f"unrouted run; max |err| {err:.3e} (bound {BOUND})")
+        need(err < BOUND, f"phase 22: error {err} above bound {BOUND}")
+        log("  unrouted:")
+        log_stages(plain_times, plain_calls)
+        log("  routed:")
+        log_stages(times, calls)
+        log(f"  four-step calls on the routed path (forward, inverse): "
+            f"{routed}; in one MultRelin's key switch: {ks}")
+        log(f"  launches on the routed path: {launches}")
+        need(ks == (2, 2), "phase 22: the key switch's four NTTs did not "
+             "take the distributed four-step")
+        missing = [k for k, v in launches.items() if v == 0]
+        need(not missing, f"phase 22: kernels never launched: {missing}")
+
+        with profiling.timed("eval_mult_relin") as r:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prod = ckks.eval_mult_relin(ct1, ct2, evk)
+            end.record()
+            r.block_on(prod)
+        torch.cuda.synchronize()
+        ev_ms = start.elapsed_time(end)
+        log(f"  profiling.timed MultRelin {r.seconds * 1e3:.4f} ms, CUDA "
+            f"events {ev_ms:.4f} ms")
+        need(r.seconds * 1e3 >= ev_ms,
+             "phase 22: timed() returned before the card finished")
+        with profiling.trace(trace_dir):
+            ckks.eval_mult_relin(ct1, ct2, evk)
+            torch.cuda.synchronize()
+        path = os.path.join(trace_dir, profiling.TRACE_FILE)
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        seen = sorted(k for k in TRACE_KERNELS
+                      if any(k in name for name in names))
+        log(f"  trace {os.path.getsize(path)} bytes, {len(names)} names; "
+            f"kernels named: {seen}")
+        need({"row_pass", "col_pass"} & set(seen)
+             and {"ks_inner_product_kernel", "fused_mac_kernel"} & set(seen),
+             "phase 22: the trace names no NTT or no MAC kernel")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1897,6 +2191,13 @@ def main():
     log("[20] TOY_LP, TOY_LMKCDEY and scheme switching at n = "
         f"{SWITCH_SMALL_RING} on the card against the CPU")
     lp_against_cpu(device)
+    log(f"[21] trapdoors at n = {TRAPDOOR_N}; n = {TRAPDOOR_SMALL_N} on the "
+        "card against the CPU")
+    trapdoor_launches = trapdoor_phase(device)
+    log("[22] the distributed four-step NTT on a one-rank NCCL group, the "
+        "main path routed through it, profiling")
+    with tempfile.TemporaryDirectory() as trace_dir:
+        dntt_launches = distributed_phase(ctx60, device, trace_dir)
 
     kernels = [{"name": name, "route": "cuda",
                 "source": f"openfhe_tpu_torch/{src}", "replaces": rep,
@@ -1909,8 +2210,11 @@ def main():
                 "binfhe_launches": binfhe_launches[name],
                 "binfhe_lp_launches": lp_launches[name],
                 "scheme_switch_launches": switch_launches[name],
+                "trapdoor_launches": trapdoor_launches[name],
+                "dntt_launches": dntt_launches[name],
                 **checks[name]}
                for name, (src, rep) in SOURCES.items()]
+    log("[end]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from . import _build, dcrt, keyswitch
-from .models import bfv, bgv, binfhe, ckks, ckks_bootstrap, scheme_switch
+from .models import (bfv, bgv, binfhe, ckks, ckks_bootstrap, scheme_switch,
+                     trapdoor)
 
 
 def u64_to_tensor(lo, hi, device=None) -> torch.Tensor:
@@ -324,3 +325,19 @@ def scheme_switch_keys_to_numpy(keys: scheme_switch.SchemeSwitchKeys) -> dict:
                 ct_s=ciphertext_to_numpy(keys.ct_s),
                 lwe_ks_a=keys.lwe_ks_a.cpu().numpy(),
                 lwe_ks_b=keys.lwe_ks_b.cpu().numpy(), q_sw=keys.q_sw)
+
+
+def trapdoor_from_jax(A, T, device=None):
+    """JAX trapdoor (A, TrapdoorPair) -> the port's: the k + 2 ring elements
+    and the k (r, e) pairs as single-tower int64 polys on `device`."""
+    return ([poly_from_jax(a, device) for a in A], trapdoor.TrapdoorPair(
+        [poly_from_jax(r, device) for r in T.r],
+        [poly_from_jax(e, device) for e in T.e]))
+
+
+def trapdoor_to_numpy(A, T) -> dict:
+    """-> (lo, hi) planes of A's ring elements and of T's r and e, for the
+    JAX RnsPoly(lo, hi, basis, fmt) and TrapdoorPair."""
+    return dict(A=[poly_to_numpy(a) for a in A],
+                r=[poly_to_numpy(r) for r in T.r],
+                e=[poly_to_numpy(e) for e in T.e])

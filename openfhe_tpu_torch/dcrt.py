@@ -4,8 +4,9 @@ Counterpart of ``openfhe_tpu/dcrt.py``. A polynomial over the basis
 {q_0..q_{L-1}} at ring dimension n is one int64 tensor [L, n] of reduced
 residues plus a hashable basis and a COEFF/EVAL format flag. Elementwise ops
 broadcast over the tower axis; ``to_eval``/``to_coeff`` are the NTT
-wrappers (CUDA kernel on the card, plain twin on the CPU). Constant tables
-are cached per (basis, device).
+wrappers (CUDA kernel on the card, plain twin on the CPU), routed through the
+distributed four-step NTT when ``set_distributed_ntt`` is given a mesh.
+Constant tables are cached per (basis, device).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from . import _build
 from .ops import automorph, elementwise, modular, ntt
 from .ops.modular import ModConsts
+from .parallel import dntt
 from .utils import sampling
 
 
@@ -176,20 +178,65 @@ def mul_scalar_int(a: RnsPoly, c: int) -> RnsPoly:
 def to_eval(a: RnsPoly) -> RnsPoly:
     if a.fmt == Format.EVAL:
         return a
-    return a.with_data(ntt.forward(a.data, a.basis.moduli), fmt=Format.EVAL)
+    return a.with_data(ntt_forward_data(a.basis, a.data), fmt=Format.EVAL)
 
 
 def to_coeff(a: RnsPoly) -> RnsPoly:
     if a.fmt == Format.COEFF:
         return a
-    return a.with_data(ntt.inverse(a.data, a.basis.moduli), fmt=Format.COEFF)
+    return a.with_data(ntt_inverse_data(a.basis, a.data), fmt=Format.COEFF)
+
+
+# --- distributed-NTT routing -------------------------------------------------
+#
+# Opt-in: set_distributed_ntt(mesh) makes every to_eval/to_coeff and every
+# ntt_forward_data/ntt_inverse_data at ring dimension >= min_n run the
+# four-step NTT split over the mesh's ranks (parallel/dntt.py: one
+# all-to-all at the transpose, the whole result on every rank) instead of
+# the one-launch transform. Both are bit-exact and share the slot-order
+# contract, so the schemes need no change. With no mesh set the launches and
+# bits are those of ops.ntt.
+
+_DNTT_CFG = {"mesh": None, "min_n": 4096}
+
+
+def set_distributed_ntt(mesh, min_n: int = 4096) -> None:
+    """Route the NTTs of ring dimension >= min_n over a ("tower", "coeff")
+    mesh (``parallel.mesh.make_mesh``; None resets). Every rank must make
+    the same calls: each routed transform is a collective over the mesh,
+    and it raises, rather than run locally, once the process group is gone.
+
+    The answer to the butterfly-stage data dependence the reference
+    handles only on the host (transformnat-impl.h:197-238; SURVEY §2.7
+    "host is the interconnect")."""
+    _DNTT_CFG["mesh"] = mesh
+    _DNTT_CFG["min_n"] = min_n
+
+
+def _routed_mesh(basis: RnsBasis):
+    mesh = _DNTT_CFG["mesh"]
+    return mesh if mesh is not None and basis.n >= _DNTT_CFG["min_n"] \
+        else None
 
 
 def ntt_forward_data(basis: RnsBasis, data: torch.Tensor) -> torch.Tensor:
-    """Forward NTT of raw residues [..., L, n] over `basis` (the JAX
-    package's entry point that honours its distributed-NTT setting; the port
-    runs on one card)."""
-    return ntt.forward(data, basis.moduli)
+    """Forward NTT of raw residues [..., L, n] over `basis`, through the
+    distributed four-step when ``set_distributed_ntt`` routes this ring
+    dimension, else the NTT kernel (its twin on the CPU)."""
+    mesh = _routed_mesh(basis)
+    if mesh is None:
+        return ntt.forward(data, basis.moduli)
+    n1, n2 = dntt.split_factors(basis.n)
+    return dntt.four_step_forward(data, n1, n2, basis.moduli, mesh=mesh)
+
+
+def ntt_inverse_data(basis: RnsBasis, data: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT of raw residues [..., L, n] (see ntt_forward_data)."""
+    mesh = _routed_mesh(basis)
+    if mesh is None:
+        return ntt.inverse(data, basis.moduli)
+    n1, n2 = dntt.split_factors(basis.n)
+    return dntt.four_step_inverse(data, n1, n2, basis.moduli, mesh=mesh)
 
 
 def automorphism(a: RnsPoly, k: int) -> RnsPoly:

@@ -9,7 +9,9 @@ Applying it to c over Q_l (EVAL): one inverse NTT, per digit a basis switch
 into the complement and one batched forward NTT over Q_l*P
 (``hoist_decompose``), the digit inner product with the key (the
 ``ks_inner_product`` kernel), then one mod-down by P over both outputs
-(``hoist_inner_product``).
+(``hoist_inner_product``). These four NTTs go through
+``dcrt.ntt_inverse_data``/``ntt_forward_data``, so a distributed NTT set
+with ``dcrt.set_distributed_ntt`` takes them too.
 
 BV switching (``bv_keygen``/``bv_apply``) needs no special primes: c is cut
 per tower into base-2^r digits, and the digits' inner product with the key
@@ -227,7 +229,7 @@ def hoist_decompose(params: KSParams, c: RnsPoly) -> torch.Tensor:
     lvl = c.basis.L
     q_act = params.q_moduli[:lvl]
     assert c.basis.moduli == q_act, "ciphertext basis must be a Q prefix"
-    c_coeff = ntt.inverse(c.data, q_act)                   # [lvl, n]
+    c_coeff = dcrt.ntt_inverse_data(c.basis, c.data)       # [lvl, n]
     rows = []
     for j in range(params.num_digits(lvl)):
         s, e = params.digit_range(j, lvl)
@@ -237,7 +239,7 @@ def hoist_decompose(params: KSParams, c: RnsPoly) -> torch.Tensor:
         # rows in basis order [q_0..q_{lvl-1}, P]
         rows.append(torch.cat([conv[:s], part, conv[s:]], dim=0))
     # one batched [ndig, lvl+K, n] forward NTT
-    return ntt.forward(torch.stack(rows), ext_basis(params, lvl).moduli)
+    return dcrt.ntt_forward_data(ext_basis(params, lvl), torch.stack(rows))
 
 
 def hoist_inner_product(key: KSKey, digits: torch.Tensor, basis: RnsBasis
@@ -255,10 +257,10 @@ def hoist_inner_product(key: KSKey, digits: torch.Tensor, basis: RnsBasis
                                        eb.mod(digits.device))
     # both halves as one [2, l+K, n] batch: one inverse NTT, one basis
     # conversion and one forward NTT
-    cc = ntt.inverse(acc, eb.moduli)
+    cc = dcrt.ntt_inverse_data(eb, acc)
     down = rns.approx_mod_down(cc[:, :lvl], cc[:, lvl:], q_act,
                                params.p_moduli, params.plaintext_correction)
-    d = ntt.forward(down, q_act)
+    d = dcrt.ntt_forward_data(basis, down)
     return (RnsPoly(d[0], basis, Format.EVAL),
             RnsPoly(d[1], basis, Format.EVAL))
 

@@ -426,3 +426,57 @@ def test_scheme_switching_on_the_card_equals_the_cpu(cuda):
     (gpu, gpu_dec), (cpu, cpu_dec) = runs
     assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
     assert gpu_dec == cpu_dec == list(range(8))
+
+
+def _trapdoor_run(device, n=128, seed=97):
+    """chip_smoke.py phase 21's flow at n = 128: trapdoor_gen, gauss_samp
+    and gauss_samp_exact over one 50-bit tower, base 2."""
+    from openfhe_tpu_torch import dcrt
+    from openfhe_tpu_torch.models import trapdoor as td
+    from openfhe_tpu_torch.utils import sampling
+
+    rng = np.random.default_rng(seed)
+    q = nbtheory.first_prime(50, 2 * n)
+    A, T = td.trapdoor_gen(n, q, 2, td.SIGMA, rng, device)
+    u = dcrt.from_int_rows(dcrt.RnsBasis(n, (q,)),
+                           sampling.uniform_rns_rows(n, (q,), rng),
+                           dcrt.Format.EVAL, device)
+    x = td.gauss_samp(n, q, 2, A, T, u, td.SIGMA, rng)
+    x_exact = td.gauss_samp_exact(n, q, 2, A, T, u, rng)
+    assert torch.equal(td.apply_A(A, x_exact).data, u.data)
+    return [p.data.cpu() for p in A + T.r + T.e + x + x_exact]
+
+
+def test_trapdoor_on_the_card_equals_the_cpu(cuda):
+    gpu, cpu = _trapdoor_run(cuda), _trapdoor_run("cpu")
+    assert len(gpu) == len(cpu)
+    assert all(torch.equal(g, c) for g, c in zip(gpu, cpu))
+
+
+def test_four_step_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """chip_smoke.py phase 22: the distributed four-step on a one-rank NCCL
+    group equals the NTT kernel, and its collectives their local results."""
+    import torch.distributed as dist
+    from openfhe_tpu_torch.parallel import collectives, dntt, mesh
+
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        m = mesh.make_mesh()
+        for n, lead in ((4096, (2,)), (1 << 16, ())):
+            moduli = tuple(nbtheory.generate_prime_chain(3, 60, n))
+            x = _uniform(moduli, lead + (n,), seed=n).to(cuda)
+            n1, n2 = dntt.split_factors(n)
+            y = dntt.four_step_forward(x, n1, n2, moduli, mesh=m)
+            assert torch.equal(y, ntt.forward(x, moduli))
+            assert torch.equal(
+                dntt.four_step_inverse(y, n1, n2, moduli, mesh=m), x)
+            assert torch.equal(collectives.four_step_forward_shard_map(
+                x.reshape(-1, n)[:3], moduli, m), ntt.forward(
+                    x.reshape(-1, n)[:3].contiguous(), moduli))
+        parts = _uniform((1 << 40,) * 4, (64,), seed=2).to(cuda)
+        assert torch.equal(collectives.tower_psum(parts, m),
+                           parts.sum(dim=0))
+    finally:
+        dist.destroy_process_group()

@@ -1,10 +1,11 @@
 """The port stands apart from JAX: no module of ``openfhe_tpu_torch`` imports
 jax or anything of ``openfhe_tpu``, the slices (the CKKS main path, the
 bootstrap, BGV and BFV, threshold FHE, PRE, the archives, BINFHE with
-LMKCDEY and scheme switching) run on the CPU
-(when asked to) without loading either, and the CUDA-only paths raise
-instead of falling back when they get what they do not take or find no
-card.
+LMKCDEY, scheme switching, trapdoors, profiling and the four-step NTT) run on
+the CPU (when asked to) without loading either, and the CUDA-only paths
+raise instead of falling back when they get what they do not take or find
+no card; the distributed NTT raises instead of running locally when its
+process group is gone.
 """
 
 import ast
@@ -43,7 +44,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 SLICE_MODULES = ["ckks.py", "ckks_advanced.py", "ckks_bootstrap.py",
                  "ckks_fft.py", "bgv.py", "bfv.py", "rns.py", "keyswitch.py",
                  "encoding.py", "multiparty.py", "pre.py", "serial.py",
-                 "binfhe.py", "scheme_switch.py"]
+                 "binfhe.py", "scheme_switch.py", "trapdoor.py", "prng.py",
+                 "field2n.py", "matrix.py", "profiling.py", "mesh.py",
+                 "dntt.py", "collectives.py"]
 
 
 def test_guard_covers_every_slice_module():
@@ -160,6 +163,20 @@ keys = ss.keygen(ctx, fctx, sw, sk, fsk, pk, rng)
 ct = ckks.encrypt(ctx, pk, np.tile(np.arange(8.0), 4), rng)
 lwes = ss.eval_ckks_to_fhew(ctx, fctx, sw, keys, ct, 8, 8)
 print(lmk, [binfhe.decrypt_zp(fctx, fsk, c, 8) for c in lwes])
+from openfhe_tpu_torch import dcrt
+from openfhe_tpu_torch.models import trapdoor as td
+from openfhe_tpu_torch.ops import ntt
+from openfhe_tpu_torch.parallel import dntt
+from openfhe_tpu_torch.utils import prng, profiling
+q = nbtheory.first_prime(24, 64)
+A, T = td.trapdoor_gen(32, q, 2, td.SIGMA, prng.Blake2Engine(4), "cpu")
+u = A[1]
+with profiling.timed("gauss_samp_exact") as r:
+    x = td.gauss_samp_exact(32, q, 2, A, T, u, rng)
+    r.block_on(x)
+y = dntt.four_step_forward(u.data, 8, 4, (q,))
+print(bool((td.apply_A(A, x).data == u.data).all()),
+      bool((y == ntt.forward(u.data, (q,))).all()))
 print(before, "jax" in sys.modules)
 print(sorted(m for m in sys.modules
              if m == "openfhe_tpu" or m.startswith("openfhe_tpu.")))
@@ -171,13 +188,15 @@ def test_slice_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    err, booted, exact, threshold, gates, switched, flags, jax_package = \
-        proc.stdout.strip().splitlines()[-8:]
+    err, booted, exact, threshold, gates, switched, trapdoor, flags, \
+        jax_package = proc.stdout.strip().splitlines()[-9:]
     assert exact == "True True", "BGV or BFV did not decrypt exactly"
     assert threshold == "True True", "threshold or PRE did not decrypt"
     assert gates == "[1, 1, 0, 0]", "the BINFHE XOR gates did not decrypt"
     assert switched == "1 [0, 1, 2, 3, 4, 5, 6, 7]", \
         "the LMKCDEY AND or the CKKS -> FHEW switch did not decrypt"
+    assert trapdoor == "True True", \
+        "A.x != u, or the four-step NTT differs from the NTT"
     assert float(err) < 1e-6
     towers, boot_err, factors = booted.split()
     assert int(towers) > 3 and float(boot_err) < 5e-2 and factors == "2"
@@ -257,3 +276,42 @@ def test_library_name_tracks_the_sources(tmp_path, monkeypatch):
     with open(tmp_path / "ntt.cu", "a") as f:
         f.write("// edited\n")
     assert _build.library_path() != before
+
+
+def test_routed_ntt_needs_its_process_group(tmp_path):
+    """With a mesh set, to_eval/to_coeff and the key switch's NTTs go
+    through the distributed four-step (bit-equal on a one-rank gloo group);
+    once the group is gone they raise rather than run the local NTT."""
+    import torch.distributed as dist
+    from openfhe_tpu_torch import dcrt, keyswitch
+    from openfhe_tpu_torch.parallel import dntt, mesh
+
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_mesh()
+    params = ckks.CKKSParams(ring_dim=128, mult_depth=2, dnum=2)
+    ctx = ckks.gen_context(params, "cpu")
+    rng = np.random.default_rng(8)
+    pk, sk = ckks.keygen(ctx, rng)
+    evk = ckks.relin_keygen(ctx, sk, rng)
+    ct = ckks.encrypt(ctx, pk, [0.5, -0.25], rng)
+    want = keyswitch.apply(evk, ct.polys[1])
+    coeff = dcrt.to_coeff(pk.b)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        dcrt.set_distributed_ntt(mesh.make_mesh(), min_n=128)
+        calls = dntt.four_step_inverse.distributed_calls
+        assert torch.equal(dcrt.to_coeff(pk.b).data, coeff.data)
+        assert dntt.four_step_inverse.distributed_calls == calls + 1
+        got = keyswitch.apply(evk, ct.polys[1])
+        assert all(torch.equal(g.data, w.data) for g, w in zip(got, want))
+        dist.destroy_process_group()
+        with pytest.raises(RuntimeError, match="process group"):
+            dcrt.to_eval(coeff)
+        with pytest.raises(RuntimeError, match="process group"):
+            keyswitch.apply(evk, ct.polys[1])
+    finally:
+        dcrt.set_distributed_ntt(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert torch.equal(dcrt.to_eval(coeff).data, pk.b.data)
