@@ -72,10 +72,18 @@ unrouted run, with the key switch's four NTTs counted on the routed path,
 checks tower_psum, and wraps one MultRelin in profiling.timed (at least
 its CUDA-event time) and profiling.trace (the trace names the NTT and MAC
 kernels). The kernels are held against their twins at both phases' shapes
-too. The line before the last is
+too. Phase 23 runs the 38 example programs of openfhe_tpu_torch/examples on
+the card, each transcript (what it prints, the mkdtemp directory masked)
+equal to the JAX program's in tests/data/example_transcripts, and phase 24
+holds entry()'s step on the card equal to the CPU and runs
+dryrun_multichip(1) on one NCCL rank; phase 2 holds each kernel against
+its twin at every call these two phases make, as a CPU rehearsal recorded
+them (tests/data/example_kernel_calls.json), and phases 23-24 fail on a
+call the rehearsal did not record. The line before the last is
 a JSON object with each kernel's launches (on the main path, in one
 bootstrap, in phase 8, in phase 9, in phases 11-13, in phase 14, in phase
-17, in phase 18, in phase 19, in phase 21 and on phase 22's routed path),
+17, in phase 18, in phase 19, in phase 21, on phase 22's routed path, in
+phase 23 and in phase 24),
 error against its twin, times (L2-warm
 ``ms``, cold-L2 ``cold_ms``, the twin's ``plain_ms``) and ``bound_ms``, the
 least time the card could take for the call; the last line is the JSON
@@ -251,8 +259,9 @@ def fused_mac_bound(rows, n):
     return bound(8 * rows * n * 4, rows * n * 28)
 
 
-def compare(name, kernel, plain, bound_, reps=20):
-    """Kernel against twin on the same inputs: bit-equal, and both timed."""
+def compare(name, kernel, plain, bound_, reps=20, cold_l2=True):
+    """Kernel against twin on the same inputs: bit-equal, and both timed
+    (the kernel on a cold L2 too unless cold_l2 is false)."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
@@ -260,10 +269,11 @@ def compare(name, kernel, plain, bound_, reps=20):
         raise AssertionError(f"{name}: kernel differs from its twin "
                              f"(max abs err {err})")
     ms = cuda_ms(kernel, reps)
-    cold = cold_ms(kernel, reps)
+    cold = cold_ms(kernel, reps) if cold_l2 else None
     plain_ms = cuda_ms(plain, max(2, reps // 10))
+    cold_text = f"{cold:.4f} ms cold L2" if cold_l2 else "cold L2 not timed"
     log(f"  {name}: torch.equal to twin; kernel {ms:.4f} ms warm, "
-        f"{cold:.4f} ms cold L2, twin {plain_ms:.4f} ms, bound "
+        f"{cold_text}, twin {plain_ms:.4f} ms, bound "
         f"{bound_['bound_ms']:.4f} ms ({bound_['bound_by']})")
     # no single PyTorch call computes a negacyclic NTT modulo q or a modular
     # multiply-accumulate on 60-bit residues: there is no library time
@@ -468,6 +478,121 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
             for name, per_shape in shapes.items()}
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# every distinct kernel call of phases 23-24, as a CPU rehearsal of them
+# recorded it (tests/make_example_kernel_calls.py)
+EXAMPLE_CALLS = os.path.join(ROOT, "tests", "data", "example_kernel_calls.json")
+EXAMPLE_REPS = 10
+
+
+def example_calls():
+    with open(EXAMPLE_CALLS) as f:
+        return json.load(f)
+
+
+def call_key(c):
+    """The CallLog signature of one entry of EXAMPLE_CALLS."""
+    if c["kernel"] == "ks_inner_product":
+        return (c["kernel"], tuple(c["shape"]), tuple(c["key_shape"]),
+                tuple(c["rows"]), tuple(c["moduli"]))
+    return (c["kernel"], tuple(c["shape"]), tuple(c["moduli"]))
+
+
+def _bits(moduli):
+    return "/".join(str(b) for b in sorted({q.bit_length() for q in moduli}))
+
+
+def summarize_shapes(results):
+    """Per ring dimension: the number of shapes, the largest error and the
+    range of each time and of the share of the bound."""
+    by_n = {}
+    for r in results:
+        by_n.setdefault(r["n"], []).append(r)
+    out = []
+    for n, rs in sorted(by_n.items()):
+        def span(key):
+            vals = [r[key] for r in rs]
+            return [min(vals), max(vals)]
+        out.append({"n": n, "cases": len(rs),
+                    "max_abs_err": max(r["max_abs_err"] for r in rs),
+                    "ms": span("ms"), "plain_ms": span("plain_ms"),
+                    "bound_ms": span("bound_ms"),
+                    "share_of_bound": [min(r["bound_ms"] / r["ms"]
+                                           for r in rs),
+                                       max(r["bound_ms"] / r["ms"]
+                                           for r in rs)]})
+    return out
+
+
+def check_example_shapes(device):
+    """Phase 2, continued: each kernel against its twin at every call the
+    example programs and the entry points make (phases 23-24). An NTT
+    shape holds the forward and the inverse, and inverse(forward(x)) == x;
+    the keys of a ks_inner_product call are drawn below the smallest of
+    its moduli, so that every row reads reduced residues. Returns, per
+    kernel, each shape's result with its ring dimension under "n"."""
+    from openfhe_tpu_torch.ops import elementwise, modular, ntt
+
+    rng = np.random.default_rng(5)
+    out = {name: [] for name in SOURCES}
+    for c in example_calls():
+        moduli = tuple(c["moduli"])
+        shape = tuple(c["shape"])
+        n = shape[-1]
+        label = f"{list(shape)} {_bits(moduli)}-bit ({c['programs'][0]})"
+        if c["kernel"] == "ntt":
+            x = uniform(moduli, shape[:-2] + (n,), rng, device)
+            t = ntt.tables(n, moduli, device)
+            bound_ = ntt_bound(x.numel() // n, len(moduli), n)
+            fwd = compare(f"ntt_forward {label}",
+                          lambda: ntt.forward(x, moduli),
+                          lambda: ntt.forward_plain(x, t), bound_,
+                          EXAMPLE_REPS, cold_l2=False)
+            y = ntt.forward(x, moduli)
+            inv = compare(f"ntt_inverse {label}",
+                          lambda: ntt.inverse(y, moduli),
+                          lambda: ntt.inverse_plain(y, t), bound_,
+                          EXAMPLE_REPS, cold_l2=False)
+            need(torch.equal(ntt.inverse(y, moduli), x),
+                 f"inverse(forward(x)) != x at {label}")
+            out["ntt_forward"].append({**fwd, "n": n})
+            out["ntt_inverse"].append({**inv, "n": n})
+        elif c["kernel"] == "ks_inner_product":
+            ndig = shape[0]
+            dnum, key_rows, _ = c["key_shape"]
+            rows = tuple(c["rows"])
+            mod = modular.make_mod_consts(moduli, device)
+            digits = uniform(moduli, (ndig, n), rng, device)
+            low = (min(moduli),) * key_rows
+            kb = uniform(low, (dnum, n), rng, device)
+            ka = uniform(low, (dnum, n), rng, device)
+            rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
+            res = compare(
+                f"ks_inner_product {label}, key {c['key_shape']}",
+                lambda: elementwise.ks_inner_product(digits, kb, ka, rows,
+                                                     mod),
+                lambda: elementwise.ks_inner_product_plain(
+                    digits, kb, ka, rows_t, mod),
+                ks_bound(ndig, len(rows), n, len(set(rows))), EXAMPLE_REPS,
+                cold_l2=False)
+            out["ks_inner_product"].append({**res, "n": n})
+        else:
+            mod = modular.make_mod_consts(moduli, device)
+            x, y, acc = (uniform(moduli, (n,), rng, device)
+                         for _ in range(3))
+            res = compare(
+                f"fused_mac_mod {label}",
+                lambda: elementwise.fused_mac_mod(x, y, acc, mod),
+                lambda: elementwise.fused_mac_plain(x, y, acc, mod),
+                fused_mac_bound(len(moduli), n), EXAMPLE_REPS, cold_l2=False)
+            out["fused_mac_mod"].append({**res, "n": n})
+    for name, results in out.items():
+        need(results, f"phase 2: no example shape for {name}")
+        log(f"  {name}: {len(results)} example shapes torch.equal to the "
+            f"twin")
+    return out
+
+
 def counters():
     from openfhe_tpu_torch.ops import elementwise, ntt
     return {"ntt_forward": ntt.forward, "ntt_inverse": ntt.inverse,
@@ -482,6 +607,56 @@ def reset_counters():
 
 def read_counters():
     return {k: w.launches for k, w in counters().items()}
+
+
+def _ntt_call(x, moduli):
+    return ("ntt", tuple(x.shape), tuple(int(q) for q in moduli))
+
+
+def _ks_call(digits, key_b, key_a, rows, mod):
+    return ("ks_inner_product", tuple(digits.shape), tuple(key_b.shape),
+            tuple(int(r) for r in rows), tuple(mod.q.reshape(-1).tolist()))
+
+
+def _mac_call(x, y, acc, mod):
+    return ("fused_mac_mod", tuple(x.shape),
+            tuple(mod.q.reshape(-1).tolist()))
+
+
+class CallLog:
+    """While entered, every call of the four kernel wrappers (on any device)
+    adds its signature to ``calls``: ("ntt", shape, moduli),
+    ("ks_inner_product", digits' shape, the keys' shape, rows, moduli) or
+    ("fused_mac_mod", shape, moduli). The wrappers are swapped for shims on
+    their modules; each shim carries the wrapper's launch count, which
+    goes back to the wrapper on exit."""
+
+    def __init__(self):
+        self.calls = set()
+        self._swapped = []
+
+    def __enter__(self):
+        from openfhe_tpu_torch.ops import elementwise, ntt
+        for module, name, sig in ((ntt, "forward", _ntt_call),
+                                  (ntt, "inverse", _ntt_call),
+                                  (elementwise, "ks_inner_product", _ks_call),
+                                  (elementwise, "fused_mac_mod", _mac_call)):
+            wrapper = getattr(module, name)
+
+            def shim(*a, _wrapper=wrapper, _sig=sig, **k):
+                self.calls.add(_sig(*a, **k))
+                return _wrapper(*a, **k)
+
+            shim.launches = wrapper.launches
+            setattr(module, name, shim)
+            self._swapped.append((module, name, wrapper, shim))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, wrapper, shim in self._swapped:
+            wrapper.launches = shim.launches
+            setattr(module, name, wrapper)
+        self._swapped = []
 
 
 def stage_timer(times):
@@ -2114,6 +2289,108 @@ def distributed_phase(ctx, device, trace_dir):
 
 
 
+# the 38 example programs (examples/*.py), in the order of their schemes:
+# CKKS, bootstrapping, BGV, BFV, protocols, BINFHE, scheme switching
+EXAMPLES = (
+    "simple_real_numbers", "rotation", "polynomial_evaluation",
+    "function_evaluation", "linearwsum_evaluation", "inner_product",
+    "advanced_real_numbers", "advanced_real_numbers_128",
+    "ckks_noise_flooding", "simple_real_numbers_serial",
+    "simple_ckks_bootstrapping", "advanced_ckks_bootstrapping",
+    "iterative_ckks_bootstrapping",
+    "simple_integers_bgvrns", "depth_bgvrns", "simple_integers_serial_bgvrns",
+    "simple_integers", "depth_bfvrns", "depth_bfvrns_behz",
+    "simple_integers_serial", "string_encoding",
+    "threshold_fhe", "threshold_fhe_5p", "tckks_interactive_mp_bootstrapping",
+    "tckks_interactive_mp_bootstrapping_chebyshev", "pre_buffer",
+    "boolean", "boolean_methods", "boolean_multi_input",
+    "boolean_truth_tables", "boolean_serial_binary", "boolean_serial_json",
+    "eval_sign", "eval_flooring", "eval_decomp",
+    "boolean_serial_binary_dynamic_large_precision",
+    "boolean_serial_json_dynamic_large_precision",
+    "scheme_switching")
+TRANSCRIPTS = os.path.join(ROOT, "tests", "data", "example_transcripts")
+
+
+def examples_phase(device):
+    """Phase 23: every example program on the card through
+    ``examples._common.run``, its masked transcript equal to the JAX
+    program's (tests/data/example_transcripts). Logs each program's host
+    seconds and launches; returns the launches of the whole phase and each
+    program's (seconds, launches)."""
+    import difflib
+
+    from openfhe_tpu_torch.examples._common import mask_tmp, run
+
+    total = dict.fromkeys(SOURCES, 0)
+    per_program = {}
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        with open(os.path.join(TRANSCRIPTS, name + ".txt")) as f:
+            want = f.read()
+        reset_counters()
+        t0 = time.perf_counter()
+        got = mask_tmp(run(name, device))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = read_counters()
+        for k, v in launches.items():
+            total[k] += v
+        per_program[name] = (sec, launches)
+        log(f"  {name}: {sec:.3f} s, launches (NTT fwd / inv / "
+            f"ks_inner_product / fused_mac_mod) "
+            f"{' / '.join(str(v) for v in launches.values())}")
+        if got != want:
+            log("".join(difflib.unified_diff(
+                want.splitlines(True), got.splitlines(True), "JAX", "card")))
+        need(got == want, f"phase 23: {name} printed other than the JAX "
+             "program")
+    log(f"  {len(EXAMPLES)} transcripts equal to the JAX programs' in "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {total}")
+    missing = [k for k, v in total.items() if v == 0]
+    need(not missing, f"phase 23: kernels never launched: {missing}")
+    return total, per_program
+
+
+def entry_phase(device, tmp_dir):
+    """Phase 24: entry()'s step on the card, equal in its inputs and output
+    to the same step on the CPU; dryrun_multichip(1) on one NCCL rank (a
+    process of its own), and that rank's work once more in this process so
+    that its launches count. Returns the launches of both."""
+    from openfhe_tpu_torch import entry
+
+    reset_counters()
+    t0 = time.perf_counter()
+    fn, args = entry.entry()
+    t1 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fn_cpu, args_cpu = entry.entry("cpu")
+    want = fn_cpu(*args_cpu)
+    ct1, ct2, evk = args
+    c1, c2, k = args_cpu
+    same_tensors("phase 24: entry()'s inputs on the card against the CPU",
+                 poly_states(ct1, ct2) + key_states(evk),
+                 poly_states(c1, c2) + key_states(k))
+    same_tensors("phase 24: entry()'s step on the card against the CPU",
+                 poly_states(out), poly_states(want))
+    need(out.scale == want.scale, "phase 24: the step's scale differs")
+    log(f"  entry(): inputs {t1 - t0:.3f} s, step {t2 - t1:.4f} s, "
+        f"{out.towers} towers; torch.equal to the CPU run")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    log(f"  dryrun_multichip(1) on NCCL: {time.perf_counter() - t0:.1f} s")
+    line = entry.dryrun_rank(0, 1, os.path.join(tmp_dir, "dryrun"), "nccl")
+    log(f"  the same rank in this process: {line}")
+    launches = read_counters()
+    log(f"  launches in phase 24: {launches}")
+    missing = [k for k in ("ntt_forward", "ntt_inverse", "ks_inner_product")
+               if launches[k] == 0]
+    need(not missing, f"phase 24: kernels never launched: {missing}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -2149,6 +2426,7 @@ def main():
     log("[2] kernels against their twins")
     checks = check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw,
                            device)
+    example_checks = check_example_shapes(device)
 
     log("[3] main path, 60-bit chain")
     launches = main_path(ckks, ctx60, "60-bit chain", seed=7)
@@ -2198,6 +2476,20 @@ def main():
         "main path routed through it, profiling")
     with tempfile.TemporaryDirectory() as trace_dir:
         dntt_launches = distributed_phase(ctx60, device, trace_dir)
+    with CallLog() as calls:
+        log("[23] the example programs on the card, each transcript against "
+            "the JAX program's")
+        examples_launches, _ = examples_phase(device)
+        log("[24] the entry points: entry() against the CPU, "
+            "dryrun_multichip(1) on NCCL")
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            entry_launches = entry_phase(device, tmp_dir)
+    checked = {call_key(c) for c in example_calls()}
+    unchecked = sorted(calls.calls - checked)
+    need(not unchecked, f"phases 23-24 made kernel calls phase 2 did not "
+         f"check: {unchecked[:5]}")
+    log(f"  phases 23-24 made {len(calls.calls)} distinct kernel calls, "
+        f"each checked in phase 2")
 
     kernels = [{"name": name, "route": "cuda",
                 "source": f"openfhe_tpu_torch/{src}", "replaces": rep,
@@ -2212,7 +2504,10 @@ def main():
                 "scheme_switch_launches": switch_launches[name],
                 "trapdoor_launches": trapdoor_launches[name],
                 "dntt_launches": dntt_launches[name],
-                **checks[name]}
+                "examples_launches": examples_launches[name],
+                "entry_launches": entry_launches[name],
+                **checks[name],
+                "example_shapes": summarize_shapes(example_checks[name])}
                for name, (src, rep) in SOURCES.items()]
     log("[end]")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -473,7 +473,8 @@ def rescale(ct: Ciphertext, degree: int = 1) -> Ciphertext:
     data = torch.stack([p.data for p in ct.polys])          # [polys, L, n]
     basis, scale = ct.basis, ct.scale
     for _ in range(degree):
-        assert basis.L >= 2, "rescale needs at least 2 towers"
+        assert basis.L >= 2, \
+            "rescale needs at least 2 towers (increase mult_depth)"
         data = rns.rescale_eval(data, basis.moduli)
         scale = scale / basis.moduli[-1]
         basis = basis.drop_last()

@@ -13,9 +13,9 @@ within 5e-2.
 The tests marked ``slow`` run the whole bootstrap of both packages from one
 seed and compare every stage's ciphertext (raised, folded, CoeffsToSlots,
 both sine branches, SlotsToCoeffs) and the decoded slots: the dense path,
-the staged ``level_budget=(2, 2)`` path and the iterative bootstrap. They
-take hours on the CPU (the JAX package compiles every op at every level,
-and each of its key switches takes seconds) and are left out of tier 1
+the staged ``level_budget=(2, 2)`` path and the iterative bootstrap. The
+JAX side runs under ``jax.disable_jit()`` (jitted it compiles every op at
+every level). They take long on the CPU and are left out of tier 1
 (``-m 'not slow'``).
 
 Depths: the pipeline spends 15 levels (CoeffsToSlots 1, the sine's
@@ -26,6 +26,7 @@ transforms one more each), so the n = 512 configuration of
 same parameters at depths 18 and 20, which regain 4 towers.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -372,17 +373,26 @@ def _jax_bootstrap_stages(ctx, keys, pre, ct):
 
 
 def _both_bootstraps(params, slots, values, seed, iterative=False, **setup):
-    jctx = jckks.gen_context(jckks.CKKSParams(**params))
-    rng = np.random.default_rng(seed)
-    jpk, jsk = jckks.keygen(jctx, rng)
-    jpre = jboot.setup(jctx, slots=slots, K=16, r=5, cheb_deg=28, **setup)
-    jkeys = jboot.keygen(jctx, jsk, jpre, rng)
-    jct = jckks.encrypt(jctx, jpk, np.tile(values, jctx.params.num_slots //
-                                           slots), rng)
-    jlow = jckks.level_reduce(jct, len(jctx.q_moduli) - 1)
-    j = dict(keys=jkeys, low=jlow, stages=_jax_bootstrap_stages(
-        jctx, jkeys, jpre, jlow))
-    j["slots"] = jckks.decrypt(jctx, jsk, j["stages"]["stc"], num_slots=slots)
+    # the JAX side op by op: jitted, it compiles every op at every level
+    with jax.disable_jit():
+        jctx = jckks.gen_context(jckks.CKKSParams(**params))
+        rng = np.random.default_rng(seed)
+        jpk, jsk = jckks.keygen(jctx, rng)
+        jpre = jboot.setup(jctx, slots=slots, K=16, r=5, cheb_deg=28,
+                           **setup)
+        jkeys = jboot.keygen(jctx, jsk, jpre, rng)
+        jct = jckks.encrypt(jctx, jpk, np.tile(
+            values, jctx.params.num_slots // slots), rng)
+        jlow = jckks.level_reduce(jct, len(jctx.q_moduli) - 1)
+        j = dict(keys=jkeys, low=jlow, stages=_jax_bootstrap_stages(
+            jctx, jkeys, jpre, jlow))
+        j["slots"] = jckks.decrypt(jctx, jsk, j["stages"]["stc"],
+                                   num_slots=slots)
+        if iterative:
+            j["iter"] = jboot.eval_bootstrap_iterative(jctx, jkeys, jpre,
+                                                       jlow)
+            j["iter_slots"] = jckks.decrypt(jctx, jsk, j["iter"],
+                                            num_slots=slots)
 
     ctx, sk, keys, pre, low = _port_bootstrap(params, slots, values, seed,
                                               **setup)
@@ -390,8 +400,6 @@ def _both_bootstraps(params, slots, values, seed, iterative=False, **setup):
     boot.eval_bootstrap(ctx, keys, pre, low, t["stages"])
     t["slots"] = ckks.decrypt(ctx, sk, t["stages"]["stc"], num_slots=slots)
     if iterative:
-        j["iter"] = jboot.eval_bootstrap_iterative(jctx, jkeys, jpre, jlow)
-        j["iter_slots"] = jckks.decrypt(jctx, jsk, j["iter"], num_slots=slots)
         t["iter"] = boot.eval_bootstrap_iterative(ctx, keys, pre, low)
         t["iter_slots"] = ckks.decrypt(ctx, sk, t["iter"], num_slots=slots)
     return j, t

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from openfhe_tpu_torch import _build, convert
+from openfhe_tpu_torch import _build, convert, entry
 from openfhe_tpu_torch.models import (bfv, bgv, binfhe, ckks, multiparty,
                                       pre, scheme_switch)
 from openfhe_tpu_torch.ops import modular, ntt, rns
@@ -46,11 +46,27 @@ SLICE_MODULES = ["ckks.py", "ckks_advanced.py", "ckks_bootstrap.py",
                  "encoding.py", "multiparty.py", "pre.py", "serial.py",
                  "binfhe.py", "scheme_switch.py", "trapdoor.py", "prng.py",
                  "field2n.py", "matrix.py", "profiling.py", "mesh.py",
-                 "dntt.py", "collectives.py"]
+                 "dntt.py", "collectives.py", "entry.py"]
+EXAMPLE_NAMES = sorted(p.stem for p in (ROOT / "examples").glob("*.py")
+                       if p.stem != "common")
 
 
 def test_guard_covers_every_slice_module():
     assert set(SLICE_MODULES) <= {p.name for p in SOURCES}
+    ported = {p.relative_to(PORT).as_posix() for p in SOURCES
+              if p.is_relative_to(PORT)}
+    assert {f"examples/{n}.py" for n in EXAMPLE_NAMES} | \
+        {"examples/_common.py"} <= ported
+
+
+def test_chip_smoke_runs_every_example():
+    """Phase 23 of chip_smoke.py runs each example program on the card."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    listed = next(ast.literal_eval(node.value) for node in tree.body
+                  if isinstance(node, ast.Assign)
+                  and getattr(node.targets[0], "id", None) == "EXAMPLES")
+    assert sorted(listed) == EXAMPLE_NAMES
+    assert len(listed) == len(set(listed))
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
@@ -260,7 +276,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
                  lambda: modular.make_mod_consts([97]),
                  lambda: rns.switch_basis_tables((97,), (193,)),
                  lambda: serial.load(tmp_path / "ct.npz"),
-                 lambda: convert.ckks_context_from_jax(ctx)):
+                 lambda: convert.ckks_context_from_jax(ctx),
+                 lambda: entry.entry(),
+                 lambda: entry.dryrun_multichip(1)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert ckks.gen_context(params, "cpu").device == torch.device("cpu")
