@@ -79,7 +79,15 @@ holds entry()'s step on the card equal to the CPU and runs
 dryrun_multichip(1) on one NCCL rank; phase 2 holds each kernel against
 its twin at every call these two phases make, as a CPU rehearsal recorded
 them (tests/data/example_kernel_calls.json), and phases 23-24 fail on a
-call the rehearsal did not record. The line before the last is
+call the rehearsal did not record. The NTT has two kernels: the four-step
+of csrc/ntt.cu for n >= 2^12 and the one-launch merged network of
+csrc/ntt_small.cu for n <= 2^11 (BINFHE, scheme switching's FHEW side, the
+four-step's sub-transforms, the example programs); phase 2 holds every NTT
+shape against the twin of the kernel it routes to, fails unless each call
+is exactly one launch of that kernel and none of the other's, and times a
+replayed launch of an empty kernel (bench/launch_floor.cu) beside them.
+Each phase fails if a kernel of its path never launched. The line before
+the last is
 a JSON object with each kernel's launches (on the main path, in one
 bootstrap, in phase 8, in phase 9, in phases 11-13, in phase 14, in phase
 17, in phase 18, in phase 19, in phase 21, on phase 22's routed path, in
@@ -151,8 +159,18 @@ _MAC_PALLAS = "openfhe_tpu/ops/elementwise_pallas.py:54"
 # kernel -> (its source under openfhe_tpu_torch/, the TPU kernel it replaces)
 SOURCES = {"ntt_forward": ("csrc/ntt.cu", f"{_NTT_PALLAS}:282"),
            "ntt_inverse": ("csrc/ntt.cu", f"{_NTT_PALLAS}:293"),
+           "ntt_small_forward": ("csrc/ntt_small.cu", f"{_NTT_PALLAS}:282"),
+           "ntt_small_inverse": ("csrc/ntt_small.cu", f"{_NTT_PALLAS}:293"),
            "ks_inner_product": ("csrc/mac.cu", _MAC_PALLAS),
            "fused_mac_mod": ("csrc/mac.cu", _MAC_PALLAS)}
+# the NTT's two routes: the four-step (n >= 2^12) and the merged network of
+# the small rings (n <= 2^11)
+FOUR_STEP = ("ntt_forward", "ntt_inverse")
+SMALL_NTT = ("ntt_small_forward", "ntt_small_inverse")
+MACS = ("ks_inner_product", "fused_mac_mod")
+# the shape whose numbers stand for the small-ring kernels in the kernels
+# line: a STD128 gate's digits (B = 4)
+SMALL_MAIN_SHAPE = "[24, 1, 1024] "
 
 
 _START = time.perf_counter()
@@ -242,6 +260,15 @@ def ntt_bound(rows, towers, n):
                  16 * butterflies + 12 * rows * n)
 
 
+def ntt_small_bound(rows, towers, n):
+    """The small-ring NTT of [rows, n] over `towers` moduli: the data read
+    and written (16 bytes a coefficient) and the tower's twiddle pairs (16
+    bytes a tower coefficient); n/2 log2 n butterflies a row at 16 integer
+    operations. No twist: the merged network has none."""
+    butterflies = rows * (n // 2) * (n.bit_length() - 1)
+    return bound(16 * rows * n + 16 * towers * n, 16 * butterflies)
+
+
 def ks_bound(ndig, rows, n, key_rows=None):
     """ks_inner_product over [ndig, rows, n]: the digits, both key halves
     (`key_rows` distinct rows of them, default one per output row) and both
@@ -282,6 +309,57 @@ def compare(name, kernel, plain, bound_, reps=20, cold_l2=True):
             "library_ms": None}
 
 
+def ntt_case(label, moduli, x, reps=20, cold_l2=True):
+    """Phase 2's check of one NTT shape: forward and inverse against the
+    twins of the kernel the wrapper routes n to (the small-ring kernel for
+    n <= 2^11, the four-step above), each call exactly one launch of that
+    kernel and none of the other's, and inverse(forward(x)) == x. Returns
+    the kernels' names and the two compare() results."""
+    from openfhe_tpu_torch.ops import ntt
+
+    n = x.shape[-1]
+    rows = x.numel() // n
+    if n <= ntt.SMALL_MAX_N:
+        names, t = SMALL_NTT, ntt.small_tables(n, moduli, x.device)
+        plains = (ntt.forward_small_plain, ntt.inverse_small_plain)
+        bound_ = ntt_small_bound(rows, len(moduli), n)
+    else:
+        names, t = FOUR_STEP, ntt.tables(n, moduli, x.device)
+        plains = (ntt.forward_plain, ntt.inverse_plain)
+        bound_ = ntt_bound(rows, len(moduli), n)
+    before = read_counters()
+    y = ntt.forward(x, moduli)
+    back = ntt.inverse(y, moduli)
+    delta = {k: read_counters()[k] - before[k] for k in FOUR_STEP + SMALL_NTT}
+    need(delta == {k: int(k in names) for k in delta},
+         f"{label}: NTT launches {delta}, expected one each of {names}")
+    need(torch.equal(back, x), f"inverse(forward(x)) != x at {label}")
+    fwd = compare(f"{names[0]} {label}", lambda: ntt.forward(x, moduli),
+                  lambda: plains[0](x, t), bound_, reps, cold_l2)
+    inv = compare(f"{names[1]} {label}", lambda: ntt.inverse(y, moduli),
+                  lambda: plains[1](y, t), bound_, reps, cold_l2)
+    log(f"  inverse(forward(x)) == x at {label}, one launch each of "
+        f"{names[0]} and {names[1]}")
+    return names, fwd, inv
+
+
+def launch_floor_ms():
+    """Device time of one replayed launch of a kernel that does nothing
+    (one block of 64 threads, bench/launch_floor.cu), by the replay that
+    times every kernel here."""
+    import ctypes
+
+    from openfhe_tpu_torch import _build
+    lib = _build.bench_library("launch_floor")
+    lib.launch_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.launch_empty.restype = ctypes.c_int
+
+    def call():
+        _build.check("launch_empty", lib.launch_empty(64, _build.stream()))
+
+    return cuda_ms(call, 20)
+
+
 def uniform(moduli, shape, rng, device):
     cols = [rng.integers(0, q, size=shape, dtype=np.uint64) for q in moduli]
     arr = np.stack(cols, axis=-2).astype(np.int64)
@@ -308,8 +386,8 @@ def binfhe_ntt_cases(binfhe):
     """(label, moduli, lead, N) of every NTT phases 17-19 launch: a step's
     digits [2dg*B, 1, N] forward and halves [2*B, 1, N] back (LMKCDEY's
     automorphism step: digits [dg, 1, N]), and key generation's ring secret
-    [1, 1, N] and errors: [n*2*2dg, 1, N] (GINX), n*d_r*B_r*2dg rows in
-    launches of at most NTT_ROWS (AP), [n*2dg] and [dg] (LMKCDEY)."""
+    [1, 1, N] and errors, each in one launch: [n*2*2dg, 1, N] (GINX),
+    [n*d_r*B_r*2dg, 1, N] (AP), [n*2dg] and [dg] (LMKCDEY)."""
     rows = {}
     for name, p, batches in binfhe_sets(binfhe):
         names, got = rows.setdefault((p.Q, p.N), ([], set()))
@@ -320,8 +398,7 @@ def binfhe_ntt_cases(binfhe):
             continue
         errs = 2 * p.dg * (p.n_lwe * p.d_r * p.B_r if p.method == "AP"
                            else 2 * p.n_lwe)
-        got.update({1, *(min(binfhe.NTT_ROWS, errs - s) for s in range(
-            0, errs, binfhe.NTT_ROWS))})
+        got.update({1, errs})
     return [(f"[{r}, 1, {N}] {Q.bit_length()}-bit BINFHE {'/'.join(names)}",
              (Q,), (r,), N) for (Q, N), (names, got) in rows.items()
             for r in sorted(got)]
@@ -389,7 +466,7 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
              ("[16, 65536] 30-bit", ctx30.q_moduli, (), n),
              ("[1, 65536] 60-bit", ctx60.q_moduli[-1:], (), n),
              ("[2, 11, 65536] 60-bit QP", qp, (2,), n),
-             ("[3, 8, 2048] 60-bit generic path", ctx60.q_moduli, (3,), 2048),
+             ("[3, 8, 2048] 60-bit", ctx60.q_moduli, (3,), 2048),
              ("[1, 65536] 55-bit bootstrap q0", bq[:1], (), n),
              (f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP", bqp, (3,), n),
              (f"[{len(s_basis)}, {nf}] 60-bit BFV S", s_basis, (), nf),
@@ -406,21 +483,15 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
              (f"[{n2}, 11, {n1}] 60-bit QP four-step columns and rows", qp,
               (n2,), n1),
              ("[3, 11, 65536] 60-bit QP", qp, (3,), n)]
+    floor_ms = launch_floor_ms()
+    log(f"  launch floor: {floor_ms:.6f} ms a replayed launch of an empty "
+        f"one-block kernel (bench/launch_floor.cu)")
     shapes = {name: [] for name in SOURCES}
     for label, moduli, lead, dim in cases:
         x = uniform(moduli, lead + (dim,), rng, device)
-        t = ntt.tables(dim, moduli, device)
-        bound_ = ntt_bound(x.numel() // dim, len(moduli), dim)
-        fwd = compare(f"ntt_forward {label}", lambda: ntt.forward(x, moduli),
-                      lambda: ntt.forward_plain(x, t), bound_)
-        y = ntt.forward(x, moduli)
-        inv = compare(f"ntt_inverse {label}", lambda: ntt.inverse(y, moduli),
-                      lambda: ntt.inverse_plain(y, t), bound_)
-        if not torch.equal(ntt.inverse(y, moduli), x):
-            raise AssertionError(f"inverse(forward(x)) != x at {label}")
-        log(f"  inverse(forward(x)) == x at {label}")
-        shapes["ntt_forward"].append(fwd)
-        shapes["ntt_inverse"].append(inv)
+        names, fwd, inv = ntt_case(label, moduli, x)
+        shapes[names[0]].append(fwd)
+        shapes[names[1]].append(inv)
 
     bfv_q = ctx_bfv.q_moduli
     for label, moduli, ndig, dim in (
@@ -474,7 +545,14 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
             lambda: elementwise.fused_mac_mod(x, y, acc, mod),
             lambda: elementwise.fused_mac_plain(x, y, acc, mod),
             fused_mac_bound(len(moduli), dim)))
-    return {name: {**per_shape[-1], "shapes": per_shape}
+    def main_entry(name, per_shape):
+        if name in SMALL_NTT:
+            return {**next(r for r in per_shape
+                           if r["shape"].startswith(SMALL_MAIN_SHAPE)),
+                    "launch_floor_ms": floor_ms}
+        return per_shape[-1]
+
+    return {name: {**main_entry(name, per_shape), "shapes": per_shape}
             for name, per_shape in shapes.items()}
 
 
@@ -531,7 +609,7 @@ def check_example_shapes(device):
     the keys of a ks_inner_product call are drawn below the smallest of
     its moduli, so that every row reads reduced residues. Returns, per
     kernel, each shape's result with its ring dimension under "n"."""
-    from openfhe_tpu_torch.ops import elementwise, modular, ntt
+    from openfhe_tpu_torch.ops import elementwise, modular
 
     rng = np.random.default_rng(5)
     out = {name: [] for name in SOURCES}
@@ -542,21 +620,10 @@ def check_example_shapes(device):
         label = f"{list(shape)} {_bits(moduli)}-bit ({c['programs'][0]})"
         if c["kernel"] == "ntt":
             x = uniform(moduli, shape[:-2] + (n,), rng, device)
-            t = ntt.tables(n, moduli, device)
-            bound_ = ntt_bound(x.numel() // n, len(moduli), n)
-            fwd = compare(f"ntt_forward {label}",
-                          lambda: ntt.forward(x, moduli),
-                          lambda: ntt.forward_plain(x, t), bound_,
-                          EXAMPLE_REPS, cold_l2=False)
-            y = ntt.forward(x, moduli)
-            inv = compare(f"ntt_inverse {label}",
-                          lambda: ntt.inverse(y, moduli),
-                          lambda: ntt.inverse_plain(y, t), bound_,
-                          EXAMPLE_REPS, cold_l2=False)
-            need(torch.equal(ntt.inverse(y, moduli), x),
-                 f"inverse(forward(x)) != x at {label}")
-            out["ntt_forward"].append({**fwd, "n": n})
-            out["ntt_inverse"].append({**inv, "n": n})
+            names, fwd, inv = ntt_case(label, moduli, x, EXAMPLE_REPS,
+                                       cold_l2=False)
+            out[names[0]].append({**fwd, "n": n})
+            out[names[1]].append({**inv, "n": n})
         elif c["kernel"] == "ks_inner_product":
             ndig = shape[0]
             dnum, key_rows, _ = c["key_shape"]
@@ -596,6 +663,8 @@ def check_example_shapes(device):
 def counters():
     from openfhe_tpu_torch.ops import elementwise, ntt
     return {"ntt_forward": ntt.forward, "ntt_inverse": ntt.inverse,
+            "ntt_small_forward": ntt.forward_small,
+            "ntt_small_inverse": ntt.inverse_small,
             "ks_inner_product": elementwise.ks_inner_product,
             "fused_mac_mod": elementwise.fused_mac_mod}
 
@@ -710,7 +779,7 @@ def main_path(ckks, ctx, label, seed):
     log(f"  launches: {launches}")
     if not err < BOUND:
         raise AssertionError(f"{label}: error {err} above bound {BOUND}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FOUR_STEP + MACS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
     return launches
@@ -783,7 +852,7 @@ def bootstrap_at_scale(ckks, boot, ctx):
         raise AssertionError(f"bootstrap: error {err} above {BOOT_BOUND}")
     if not out.towers > 3:
         raise AssertionError(f"bootstrap regained only {out.towers} towers")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FOUR_STEP + MACS if launches[k] == 0]
     if missing:
         raise AssertionError(f"bootstrap: kernels never launched: {missing}")
     return launches, times["bootstrap_warm"]
@@ -1051,7 +1120,7 @@ def fhe_at_scale(label, run, ctx):
     log(f"  host: packed encode {enc:.4f} s, decode {dec:.4f} s, centered "
         f"CRT over {len(ctx.q_moduli)} towers {crt:.4f} s")
     log(f"  launches: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FOUR_STEP + MACS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched: {missing}")
     return launches
@@ -1354,7 +1423,7 @@ def threshold_and_pre(ctx60, ctx_bgv, ctx_bfv, device, boot_warm_s):
         f"share alone {single_err:.3e}")
     log_stages(times)
     log(f"  launches: {phase11}")
-    missing = [k for k, v in phase11.items() if v == 0]
+    missing = [k for k in FOUR_STEP + MACS if phase11[k] == 0]
     if missing:
         raise AssertionError(f"threshold CKKS: kernels never launched: "
                              f"{missing}")
@@ -1403,7 +1472,7 @@ def threshold_and_pre(ctx60, ctx_bgv, ctx_bfv, device, boot_warm_s):
         log_stages(times)
     pre_launches = read_counters()
     log(f"  launches: {pre_launches}")
-    missing = [k for k, v in pre_launches.items() if v == 0]
+    missing = [k for k in FOUR_STEP + MACS if pre_launches[k] == 0]
     if missing:
         raise AssertionError(f"PRE: kernels never launched: {missing}")
 
@@ -1613,7 +1682,7 @@ def binfhe_phase(device):
         del bk
     launches = read_counters()
     log(f"  launches in phase 17: {launches}")
-    missing = [k for k in ("ntt_forward", "ntt_inverse", "ks_inner_product")
+    missing = [k for k in SMALL_NTT + ("ks_inner_product",)
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"BINFHE: kernels never launched: {missing}")
@@ -1810,7 +1879,7 @@ def binfhe_lp_phase(device):
     log_stages(times, calls)
     launches = read_counters()
     log(f"  launches in phase 18: {launches}")
-    missing = [k for k in ("ntt_forward", "ntt_inverse", "ks_inner_product")
+    missing = [k for k in SMALL_NTT + ("ks_inner_product",)
                if launches[k] == 0]
     need(not missing, f"phase 18: kernels never launched: {missing}")
     return launches
@@ -2043,8 +2112,8 @@ DNTT_MIN_N = 4096
 DNTT_SEED = 7
 DNTT_WARM = 4          # warm repetitions of the main path, unrouted and routed
 # the kernels' names in csrc/ntt.cu and csrc/mac.cu, looked for in the trace
-TRACE_KERNELS = ("col_pass", "row_pass", "ks_inner_product_kernel",
-                 "fused_mac_kernel")
+TRACE_KERNELS = ("col_pass", "row_pass", "ntt_small_kernel",
+                 "ks_inner_product_kernel", "fused_mac_kernel")
 
 
 def trapdoor_flow(td, n, device, seed, timed):
@@ -2254,7 +2323,7 @@ def distributed_phase(ctx, device, trace_dir):
         log(f"  launches on the routed path: {launches}")
         need(ks == (2, 2), "phase 22: the key switch's four NTTs did not "
              "take the distributed four-step")
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k in SMALL_NTT + MACS if launches[k] == 0]
         need(not missing, f"phase 22: kernels never launched: {missing}")
 
         with profiling.timed("eval_mult_relin") as r:
@@ -2337,8 +2406,7 @@ def examples_phase(device):
         for k, v in launches.items():
             total[k] += v
         per_program[name] = (sec, launches)
-        log(f"  {name}: {sec:.3f} s, launches (NTT fwd / inv / "
-            f"ks_inner_product / fused_mac_mod) "
+        log(f"  {name}: {sec:.3f} s, launches ({' / '.join(launches)}) "
             f"{' / '.join(str(v) for v in launches.values())}")
         if got != want:
             log("".join(difflib.unified_diff(
@@ -2347,7 +2415,7 @@ def examples_phase(device):
              "program")
     log(f"  {len(EXAMPLES)} transcripts equal to the JAX programs' in "
         f"{time.perf_counter() - t_phase:.1f} s; launches {total}")
-    missing = [k for k, v in total.items() if v == 0]
+    missing = [k for k in SMALL_NTT + MACS if total[k] == 0]
     need(not missing, f"phase 23: kernels never launched: {missing}")
     return total, per_program
 
@@ -2385,7 +2453,7 @@ def entry_phase(device, tmp_dir):
     log(f"  the same rank in this process: {line}")
     launches = read_counters()
     log(f"  launches in phase 24: {launches}")
-    missing = [k for k in ("ntt_forward", "ntt_inverse", "ks_inner_product")
+    missing = [k for k in FOUR_STEP + SMALL_NTT + ("ks_inner_product",)
                if launches[k] == 0]
     need(not missing, f"phase 24: kernels never launched: {missing}")
     return launches

@@ -43,6 +43,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ntt_forward": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ntt_inverse": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "ntt_small_forward": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "ntt_small_inverse": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "ks_inner_product": [_P, _P, _P, _P, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P, _P, _P],
     "fused_mac_mod": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -114,6 +116,22 @@ def build() -> Path:
     so.with_suffix(".log").write_text(log)
     os.replace(tmp, so)
     return so
+
+
+def bench_library(name: str) -> ctypes.CDLL:
+    """``bench/<name>.cu`` built on its own into a shared library beside the
+    kernel library (not part of it), under a name that carries its hash,
+    and loaded."""
+    src = SRC_DIR.parent / "bench" / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   str(src)]])
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))
 
 
 def library() -> ctypes.CDLL:

@@ -77,10 +77,11 @@
 // Tensor cores do not apply: the butterflies are exact 60-bit modular
 // products.
 //
-// Every other ring dimension (n < 2^12 or n > 2^17) takes the generic
-// radix-2 passes at the end of this file: one butterfly per thread and
-// stage in shared memory, eager reduction, geometry as run-time arguments.
-// The entry points pick by n1 and n2 alone.
+// Rings above 2^17 take the generic radix-2 passes at the end of this file:
+// one butterfly per thread and stage in shared memory, eager reduction,
+// geometry as run-time arguments. The entry points pick by n1 and n2 alone,
+// and refuse rings below 2^12: those take the one-launch kernels of
+// ntt_small.cu.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
@@ -591,6 +592,7 @@ int run(const int64_t* x, int64_t* y, int rows, int L, int n1, int n2,
         const int64_t* q, const int64_t* w1, const int64_t* w1p,
         const int64_t* w2, const int64_t* w2p, const int64_t* tw,
         const int64_t* twp, cudaStream_t stream) {
+  if (n1 * n2 < (1 << 12)) return (int)cudaErrorInvalidValue;
   const bool fast = fast_geometry(n1, n2);
   u64* out = (u64*)y;
   for (int pass = 0; pass < 2; ++pass) {

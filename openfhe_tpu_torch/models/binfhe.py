@@ -57,7 +57,6 @@ from ..ops.modular import (add_mod, make_mod_consts, mul_mod, neg_mod,
                            sub_mod)
 from ..utils import nbtheory, sampling
 
-NTT_ROWS = 65535           # rows one NTT launch takes (its grid limit)
 KS_GATHER_BYTES = 1 << 30  # the LWE key switch gathers at most this at once
 
 
@@ -296,15 +295,10 @@ def _row_mod(ctx: BinFHEContext, rows: int):
 
 
 def _ntt_nd(x: torch.Tensor, Q: int, inverse: bool = False) -> torch.Tensor:
-    """NTT over the last axis of any shape, as [rows, 1, N] launches of at
-    most NTT_ROWS rows."""
+    """NTT over the last axis of any shape, as one [rows, 1, N] call (every
+    BINFHE ring is at most 2^11, whose kernel takes any number of rows)."""
     fn = ntt.inverse if inverse else ntt.forward
-    flat = x.reshape(-1, 1, x.shape[-1])
-    if flat.shape[0] <= NTT_ROWS:
-        return fn(flat, (Q,)).reshape(x.shape)
-    return torch.cat([fn(flat[s:s + NTT_ROWS], (Q,))
-                      for s in range(0, flat.shape[0], NTT_ROWS)]
-                     ).reshape(x.shape)
+    return fn(x.reshape(-1, 1, x.shape[-1]), (Q,)).reshape(x.shape)
 
 
 def _rows(ctx: BinFHEContext, a) -> torch.Tensor:
@@ -469,23 +463,16 @@ def _rlwe_encrypt_batch(ctx: BinFHEContext, z_eval: torch.Tensor,
                         rng: np.random.Generator):
     """RLWE encryptions under z of msgs [*shape, N] (EVAL): (c0, c1) with
     c0 + c1*z = msg + e. a is drawn as uint64, then the errors, as the
-    reference draws them; the errors' NTT runs in launches of NTT_ROWS."""
+    reference draws them; the errors' NTT is one call."""
     p = ctx.params
     N, Q = p.N, p.Q
-    mod = _mod(ctx)
     a = _rows(ctx, rng.integers(0, Q, size=(*shape, N), dtype=np.uint64)
               .view(np.int64))
     e = np.rint(rng.normal(0, p.sigma, size=(*shape, N)))
-    e = _rows(ctx, e.astype(np.int64)) % Q
-    c0 = torch.empty_like(a).reshape(-1, N)
-    a_rows, e_rows = a.reshape(-1, N), e.reshape(-1, N)
-    m_rows = msgs_eval.reshape(-1, N)
-    for s in range(0, a_rows.shape[0], NTT_ROWS):
-        sl = slice(s, s + NTT_ROWS)
-        e_ev = _ntt_nd(e_rows[sl], Q)
-        c0[sl] = add_mod(sub_mod(e_ev, mul_mod(a_rows[sl], z_eval, mod), Q),
-                         m_rows[sl], Q)
-    return c0.reshape(a.shape), a
+    e_ev = _ntt_nd(_rows(ctx, e.astype(np.int64)) % Q, Q)
+    c0 = add_mod(sub_mod(e_ev, mul_mod(a, z_eval, _mod(ctx)), Q), msgs_eval,
+                 Q)
+    return c0, a
 
 
 def _keyswitch_keygen(ctx: BinFHEContext, sk: BinFHESecret,

@@ -85,10 +85,12 @@ TIMED_RUNS = 30
 PROFILED_RUNS = 10
 HBM_BYTES_PER_S = 3.35e12   # published peak of one H100 SXM
 FLUSH_BYTES = 192 << 20     # several times the 50 MB L2
-# device kernels of csrc/ by the name the profiler shows; the NTT passes
+# device kernels of csrc/ by the name the profiler shows; the NTT kernels
 # carry their direction as the last template argument
 OURS = {"ntt_forward": r"(col|row)_pass\w*<[^>]*true>",
         "ntt_inverse": r"(col|row)_pass\w*<[^>]*false>",
+        "ntt_small_forward": r"ntt_small_kernel<[^>]*true>",
+        "ntt_small_inverse": r"ntt_small_kernel<[^>]*false>",
         "ks_inner_product": r"ks_inner_product_kernel",
         "fused_mac": r"fused_mac_kernel"}
 
@@ -143,7 +145,8 @@ def _profile(fn, runs: int = PROFILED_RUNS, top: int = 0) -> dict:
 
 
 def _ours_text(row: dict) -> str:
-    return (f"NTT {row['ntt_forward_us'] + row['ntt_inverse_us']:.1f} us, "
+    ntt_us = sum(row[f"{k}_us"] for k in OURS if k.startswith("ntt"))
+    return (f"NTT {ntt_us:.1f} us, "
             f"MAC {row['ks_inner_product_us'] + row['fused_mac_us']:.1f} us")
 
 
@@ -472,7 +475,8 @@ def _binfhe_keys(name: str, seed: int):
           f"{tuple(bk.ek.shape)}, key switch {tuple(bk.ks_a.shape)})",
           flush=True)
     cts = [binfhe.encrypt(ctx, sk, x, rng) for x in (0, 1)]
-    wrappers = {"ntt_forward": ntt.forward, "ntt_inverse": ntt.inverse,
+    wrappers = {"ntt_small_forward": ntt.forward_small,
+                "ntt_small_inverse": ntt.inverse_small,
                 "ks_inner_product": elementwise.ks_inner_product}
     return binfhe, ctx, sk, bk, keygen_s, rng, cts, wrappers
 

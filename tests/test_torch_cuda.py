@@ -30,7 +30,8 @@ def _uniform(moduli, shape, seed):
 
 
 # n = 2^12 .. 2^17 take the templated radix-16 kernels (sub-transforms of
-# 64, 128, 256 and 512 points), every other n the generic radix-2 ones
+# 64, 128, 256 and 512 points), n <= 2^11 the small-ring kernel
+# (csrc/ntt_small.cu), n > 2^17 the generic radix-2 ones
 NTT_SHAPES = [(n, (2,)) for n in (2, 16, 512, 2048, 4096, 8192, 16384, 32768,
                                    1 << 17)] + \
     [(n, lead) for n in (2048, 4096, 32768) for lead in ((1,), (3,), ())]
@@ -49,6 +50,49 @@ def test_ntt_kernel_matches_twin(cuda, n, bits, lead):
     back = ntt.inverse(got, moduli)
     assert torch.equal(back.cpu(), x)
     assert torch.equal(back.cpu(), ntt.inverse_plain(want, t_cpu))
+
+
+def _ntt_counts():
+    return (ntt.forward.launches, ntt.inverse.launches,
+            ntt.forward_small.launches, ntt.inverse_small.launches)
+
+
+def _small_round_trip(x, moduli):
+    """forward and inverse of x on the card: each one launch of the
+    small-ring kernel and none of the four-step's, each torch.equal to its
+    twin on the same tensors, and the round trip the identity."""
+    n = x.shape[-1]
+    t = ntt.small_tables(n, moduli, x.device)
+    before = _ntt_counts()
+    got = ntt.forward(x, moduli)
+    back = ntt.inverse(got, moduli)
+    after = _ntt_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 0, 1, 1)
+    assert torch.equal(got, ntt.forward_small_plain(x, t))
+    assert torch.equal(back, ntt.inverse_small_plain(got, t))
+    assert torch.equal(back, x)
+
+
+# every ring the small-ring kernel is built for, at 1, 7 and 96 rows of one
+# and of three towers
+@pytest.mark.parametrize("log_n", range(1, 12))
+@pytest.mark.parametrize("rows", [1, 7, 96])
+@pytest.mark.parametrize("towers", [1, 3])
+def test_small_ntt_kernel_matches_twin(cuda, log_n, rows, towers):
+    n = 1 << log_n
+    bits = (27, 50, 61)[log_n % 3]
+    moduli = tuple(nbtheory.generate_prime_chain(towers, bits, n))
+    x = _uniform(moduli, (rows, n), seed=n + rows + towers)  # [rows, L, n]
+    _small_round_trip(x.to(cuda), moduli)
+
+
+@pytest.mark.parametrize("rows,towers,n", [(70001, 1, 1024),
+                                           (23000, 3, 256)])
+def test_small_ntt_kernel_beyond_65535_rows(cuda, rows, towers, n):
+    """One launch takes any number of rows (they sit on blockIdx.x)."""
+    moduli = tuple(nbtheory.generate_prime_chain(towers, 28, n))
+    x = _uniform(moduli, (rows, n), seed=rows)
+    _small_round_trip(x.to(cuda), moduli)
 
 
 @pytest.mark.parametrize("bits", [45, 55, 60])
@@ -237,7 +281,7 @@ def _binfhe_q(name):
     *[("STD128Q_3", r, 2048) for r in (1, 8, 16, 4600)]])
 def test_ntt_kernel_at_binfhe_shapes(cuda, name, rows, n):
     """Blind rotation's and key generation's NTTs: one 27- or 50-bit
-    modulus (the generic radix-2 kernels)."""
+    modulus (the small-ring kernel)."""
     moduli = (_binfhe_q(name),)
     x = _uniform(moduli, (rows, n), seed=rows + n)
     t_cpu = ntt.tables(n, moduli, "cpu")
