@@ -46,7 +46,10 @@ public-key encryption switched into a gate; AND and NAND at STD128Q_3 (a
 4.7 GB key drawn on the host); every decryption exact, the NTT and
 ks_inner_product launched; and TOY and TOY_AP on the card equal to the CPU
 run in every key, output and archive. The kernels are held against their
-twins at one blind-rotation step's shapes too. Phase 18 runs the
+twins at one blind-rotation step's shapes too, ks_inner_product in the
+form each step calls it: GINX with the monomial product in its epilogue,
+AP reading its key rows through a device index (as does a GINX batch of
+130, beyond the rows a host list passes by value). Phase 18 runs the
 large-precision functions at STD128 (eval_floor within 2 beta, eval_sign_large
 exact, eval_decomp, eval_sign over Z_8; input modulus q_ks, beta = 64) and
 LMKCDEY at STD128_LMKCDEY (keys, AND, OR, XOR and NAND over their truth
@@ -82,8 +85,9 @@ them (tests/data/example_kernel_calls.json), and phases 23-24 fail on a
 call the rehearsal did not record. The NTT has two kernels: the four-step
 of csrc/ntt.cu for n >= 2^12 and the one-launch merged network of
 csrc/ntt_small.cu for n <= 2^11 (BINFHE, scheme switching's FHEW side, the
-four-step's sub-transforms, the example programs); phase 2 holds every NTT
-shape against the twin of the kernel it routes to, fails unless each call
+four-step's sub-transforms, the example programs), and csrc/ntt.cu's
+generic radix-2 passes serve n > 2^17, held at n = 2^18 in phase 2; phase
+2 holds every NTT shape against the twin of the kernel it routes to, fails unless each call
 is exactly one launch of that kernel and none of the other's, and times a
 replayed launch of an empty kernel (bench/launch_floor.cu) beside them.
 Each phase fails if a kernel of its path never launched. The line before
@@ -193,31 +197,10 @@ def gpu_line() -> str:
 
 def cuda_ms(fn, reps):
     """Mean device time of fn() (or of a tuple of functions called in turn)
-    over `reps` calls. The calls are captured in one CUDA graph and the
-    replay is timed with CUDA events, so the host's cost of each call
-    (Python, ctypes) is not counted: for the short kernels it exceeds the
-    kernel's own time. A warm-up call first builds every
-    table and cache outside the capture."""
-    calls = fn if isinstance(fn, tuple) else (fn,)
-    for f in calls:
-        f()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            for f in calls:
-                f()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    assert ms > 0, f"non-positive kernel time {ms}"
-    return ms
+    over `reps` calls, by replaying them as one CUDA graph
+    (``utils.profiling.graph_ms``)."""
+    from openfhe_tpu_torch.utils.profiling import graph_ms
+    return graph_ms(fn, reps)
 
 
 _flush_buf = {}
@@ -269,15 +252,32 @@ def ntt_small_bound(rows, towers, n):
     return bound(16 * rows * n + 16 * towers * n, 16 * butterflies)
 
 
-def ks_bound(ndig, rows, n, key_rows=None):
+def ks_bound(ndig, rows, n, key_rows=None, rows_on_device=False,
+             mono_rows=0):
     """ks_inner_product over [ndig, rows, n]: the digits, both key halves
     (`key_rows` distinct rows of them, default one per output row) and both
     outputs once; per output a 64x64->128 product a digit (four multiply-adds
     and four additions to accumulate) and a final reduction of some twenty
-    operations."""
+    operations. A rows tensor adds its 8 bytes a row; an epilogue over
+    `mono_rows` distinct rows of the table adds those rows and its index,
+    and per output a full product (eight operations) and a reduction."""
     key_rows = rows if key_rows is None else key_rows
-    return bound(8 * n * (ndig * rows + 2 * ndig * key_rows + 2 * rows),
-                 rows * n * 2 * (8 * ndig + 20))
+    index = 8 * rows * (bool(rows_on_device) + bool(mono_rows))
+    return bound(8 * n * (ndig * rows + 2 * ndig * key_rows + 2 * rows
+                          + mono_rows) + index,
+                 rows * n * 2 * (8 * ndig + 20 + (28 if mono_rows else 0)))
+
+
+def epilogue_operands(mono_shape, q, rows, rng, device):
+    """ks_inner_product's epilogue keywords for a table of `mono_shape`
+    ([M, n], residues below q) and `rows` random row indices, or {} when
+    `mono_shape` is None."""
+    if mono_shape is None:
+        return {}
+    M, n = mono_shape
+    mono = uniform((q,), (M, n), rng, device)[:, 0, :].contiguous()
+    mono_rows = torch.from_numpy(rng.integers(0, M, rows)).to(device)
+    return {"mono": mono, "mono_rows": mono_rows}
 
 
 def fused_mac_bound(rows, n):
@@ -404,30 +404,45 @@ def binfhe_ntt_cases(binfhe):
             for r in sorted(got)]
 
 
+# a GINX batch beyond the rows a host list passes by value
+# (elementwise.MAX_ROWS_BY_VALUE): its sign rows go to the kernel as a
+# device index
+WIDE_GINX_BATCH = 130
+
+
 def binfhe_ks_cases(binfhe):
-    """(label, (Q,), N, 2dg, B, key rows, rows) of every ks_inner_product
-    phases 17-19 launch: GINX digits [2dg, B, N] against the step's slab
-    [2dg, 2, N], every row reading one sign's row; AP against the slab
-    gathered per batch element, [2dg, B, N], row i reading row i; LMKCDEY
-    digits [2dg, 1, N] against ek[j]'s [2dg, 1, N] and [dg, 1, N] against
-    an automorphism key's."""
+    """(label, (Q,), N, 2dg, B, key rows, rows, rows on the device?,
+    epilogue?) of every ks_inner_product phases 17-19 launch: GINX digits
+    [2dg, B, N] against the step's slab [2dg, 2, N], every row reading one
+    sign's row, with the monomial product in the epilogue; AP against the
+    step's slab [2dg, B_r, N], row i reading the key row of batch element
+    i's digit, given as a device index; LMKCDEY digits [2dg, 1, N] against
+    ek[j]'s [2dg, 1, N] and [dg, 1, N] against an automorphism key's. Then
+    one STD128 GINX batch of WIDE_GINX_BATCH, whose rows go as a device
+    index."""
     out = []
     for name, p, batches in binfhe_sets(binfhe):
         if p.method == "LMKCDEY":
             out += [(f"[{d}, 1, {p.N}] {p.Q.bit_length()}-bit BINFHE {name}, "
                      f"key [{d}, 1, {p.N}] ({what})", (p.Q,), p.N, d, 1, 1,
-                     (0,)) for d, what in ((2 * p.dg, "ek row"),
-                                           (p.dg, "automorphism key"))]
+                     (0,), False, False)
+                    for d, what in ((2 * p.dg, "ek row"),
+                                    (p.dg, "automorphism key"))]
             continue
+        if name == "STD128":
+            batches = batches + (WIDE_GINX_BATCH,)
         for b in batches:
             shape = f"[{2 * p.dg}, {b}, {p.N}] {p.Q.bit_length()}-bit BINFHE"
             if p.method == "AP":
-                out.append((f"{shape} {name}, key [{2 * p.dg}, {b}, {p.N}] "
-                            f"gathered", (p.Q,), p.N, 2 * p.dg, b, b,
-                            tuple(range(b))))
+                rows = tuple(i % p.B_r for i in range(5, 5 + 7 * b, 7))
+                out.append((f"{shape} {name}, key [{2 * p.dg}, {p.B_r}, "
+                            f"{p.N}], rows {list(rows)} on the device",
+                            (p.Q,), p.N, 2 * p.dg, b, p.B_r, rows, True,
+                            False))
             else:
                 out += [(f"{shape} {name}, key [{2 * p.dg}, 2, {p.N}] sign "
-                         f"{sign}", (p.Q,), p.N, 2 * p.dg, b, 2, (sign,) * b)
+                         f"{sign}, monomial epilogue", (p.Q,), p.N,
+                         2 * p.dg, b, 2, (sign,) * b, False, True)
                         for sign in (0, 1)]
     return out
 
@@ -436,14 +451,15 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
     """Phase 2: each kernel against its twin at the main path's shapes, at
     the bootstrap chain's (45- and 55-bit towers, 60-bit special primes),
     at BGV's and BFV's (n = 2^15: the BFV S = Q∪R basis, BGV's Q∪P with
-    primes ≡ 1 mod 2nt, a BV chunk of 15 digits) and at one ring dimension
-    that takes the NTT's generic path, and at the key shares of threshold
-    FHE (both halves of every digit at once), at every BINFHE shape phases
-    17-19 give them (BINFHE_BATCHES) and at scheme switching's CKKS chain
+    primes ≡ 1 mod 2nt, a BV chunk of 15 digits), at n = 2^18 (the NTT's
+    generic radix-2 passes, which no phase reaches), at the key shares of
+    threshold FHE (both halves of every digit at once), at every BINFHE
+    shape phases 17-19 give them (BINFHE_BATCHES; ks_inner_product in the
+    form each blind rotation calls it: GINX with the monomial epilogue, AP
+    with its rows on the device) and at scheme switching's CKKS chain
     (phase 19: 14 towers + 5 special primes, dnum 3). Each kernel's summary
-    entry is
-    its CKKS main-path keyswitch shape's and lists every shape under
-    ``shapes``."""
+    entry is its CKKS main-path keyswitch shape's and lists every shape
+    under ``shapes``."""
     from openfhe_tpu_torch.models import binfhe
     from openfhe_tpu_torch.ops import elementwise, modular, ntt
     from openfhe_tpu_torch.utils import nbtheory
@@ -453,6 +469,8 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
     # phase 21's tower; phase 22's four-step columns [n2, ..., L, n1] and
     # rows [n1, ..., L, n2] on one rank (n1 = n2 at n = 2^16)
     q_td = (nbtheory.first_prime(TRAPDOOR_BITS, 2 * TRAPDOOR_N),)
+    # rings above 2^17 take csrc/ntt.cu's generic radix-2 passes
+    q18 = tuple(nbtheory.generate_prime_chain(3, 60, 1 << 18))
     td_label = f"[1, {TRAPDOOR_N}] {TRAPDOOR_BITS}-bit trapdoor"
     n1, n2 = ntt.split_factors(n)
     qp = ctx60.q_moduli + ctx60.p_moduli
@@ -467,6 +485,10 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
              ("[1, 65536] 60-bit", ctx60.q_moduli[-1:], (), n),
              ("[2, 11, 65536] 60-bit QP", qp, (2,), n),
              ("[3, 8, 2048] 60-bit", ctx60.q_moduli, (3,), 2048),
+             ("[1, 262144] 60-bit generic radix-2 path", q18[:1], (),
+              1 << 18),
+             ("[2, 3, 262144] 60-bit generic radix-2 path", q18, (2,),
+              1 << 18),
              ("[1, 65536] 55-bit bootstrap q0", bq[:1], (), n),
              (f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP", bqp, (3,), n),
              (f"[{len(s_basis)}, {nf}] 60-bit BFV S", s_basis, (), nf),
@@ -494,13 +516,17 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
         shapes[names[1]].append(inv)
 
     bfv_q = ctx_bfv.q_moduli
-    for label, moduli, ndig, dim in (
-            (f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP", bqp, 3, n),
-            (f"[3, {len(bgv_qp)}, {nf}] 60-bit BGV QP", bgv_qp, 3, nf),
+    # the key switches' shapes, rows by value; once with the rows as a
+    # device index, the variant a wide BINFHE batch or AP takes
+    for label, moduli, ndig, dim, on_device in (
+            (f"[3, {len(bqp)}, 65536] 45/55-bit bootstrap QP", bqp, 3, n,
+             False),
+            (f"[3, {len(bgv_qp)}, {nf}] 60-bit BGV QP", bgv_qp, 3, nf, False),
             (f"[15, {len(bfv_q)}, {nf}] 60-bit BV chunk of 15 digits", bfv_q,
-             15, nf),
-            (sw_label, swqp, 3, n),
-            ("[3, 11, 65536] 60-bit QP", qp, 3, n)):
+             15, nf, False),
+            (sw_label, swqp, 3, n, False),
+            ("[3, 11, 65536] 60-bit QP, rows on the device", qp, 3, n, True),
+            ("[3, 11, 65536] 60-bit QP", qp, 3, n, False)):
         mod = modular.make_mod_consts(moduli, device)
         digits = uniform(moduli, (ndig, dim), rng, device)
         kb = uniform(moduli, (ndig, dim), rng, device)
@@ -509,23 +535,31 @@ def check_kernels(ctx60, ctx30, ctx_boot, ctx_bgv, ctx_bfv, ctx_sw, device):
         rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
         shapes["ks_inner_product"].append(compare(
             f"ks_inner_product {label}",
-            lambda: elementwise.ks_inner_product(digits, kb, ka, rows, mod),
+            lambda: elementwise.ks_inner_product(
+                digits, kb, ka, rows_t if on_device else rows, mod),
             lambda: elementwise.ks_inner_product_plain(
-                digits, kb, ka, rows_t, mod), ks_bound(ndig, len(moduli),
-                                                       dim)))
-    for label, q, dim, ndig, batch, key_rows, rows in binfhe_ks_cases(
-            binfhe):
+                digits, kb, ka, rows_t, mod),
+            ks_bound(ndig, len(moduli), dim, None, on_device)))
+    for (label, q, dim, ndig, batch, key_rows, rows, on_device,
+         epilogue) in binfhe_ks_cases(binfhe):
         mod = modular.make_mod_consts(q * batch, device)
         digits = uniform(q, (ndig, batch, dim), rng, device)[..., 0, :]
         kb = uniform(q, (ndig, key_rows, dim), rng, device)[..., 0, :]
         ka = uniform(q, (ndig, key_rows, dim), rng, device)[..., 0, :]
         rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
+        # the blind rotation's table: (X^c - 1) for every c mod 2N
+        extra = epilogue_operands((2 * dim, dim) if epilogue else None,
+                                  q[0], batch, rng, device)
+        wide = batch > elementwise.MAX_ROWS_BY_VALUE
         shapes["ks_inner_product"].insert(-1, compare(
             f"ks_inner_product {label}",
-            lambda: elementwise.ks_inner_product(digits, kb, ka, rows, mod),
+            lambda: elementwise.ks_inner_product(
+                digits, kb, ka, rows_t if on_device else rows, mod, **extra),
             lambda: elementwise.ks_inner_product_plain(
-                digits, kb, ka, rows_t, mod),
-            ks_bound(ndig, batch, dim, len(set(rows)))))
+                digits, kb, ka, rows_t, mod, **extra),
+            ks_bound(ndig, batch, dim, len(set(rows)), on_device or wide,
+                     len(set(extra["mono_rows"].tolist())) if extra
+                     else 0)))
     # a key share scales both halves of every digit in one launch: the QP
     # moduli repeated 2 * dnum times
     for label, moduli, dim in (
@@ -571,8 +605,10 @@ def example_calls():
 def call_key(c):
     """The CallLog signature of one entry of EXAMPLE_CALLS."""
     if c["kernel"] == "ks_inner_product":
+        on_device = c["rows"] == "device"
         return (c["kernel"], tuple(c["shape"]), tuple(c["key_shape"]),
-                tuple(c["rows"]), tuple(c["moduli"]))
+                () if on_device else tuple(c["rows"]), on_device,
+                tuple(c.get("mono_shape", ())), tuple(c["moduli"]))
     return (c["kernel"], tuple(c["shape"]), tuple(c["moduli"]))
 
 
@@ -625,23 +661,32 @@ def check_example_shapes(device):
             out[names[0]].append({**fwd, "n": n})
             out[names[1]].append({**inv, "n": n})
         elif c["kernel"] == "ks_inner_product":
-            ndig = shape[0]
+            ndig, R = shape[0], shape[1]
             dnum, key_rows, _ = c["key_shape"]
-            rows = tuple(c["rows"])
+            on_device = c["rows"] == "device"
+            rows = (tuple(int(r) for r in rng.integers(0, key_rows, R))
+                    if on_device else tuple(c["rows"]))
             mod = modular.make_mod_consts(moduli, device)
             digits = uniform(moduli, (ndig, n), rng, device)
             low = (min(moduli),) * key_rows
             kb = uniform(low, (dnum, n), rng, device)
             ka = uniform(low, (dnum, n), rng, device)
             rows_t = torch.tensor(rows, dtype=torch.int64, device=device)
+            extra = epilogue_operands(c.get("mono_shape"), min(moduli), R,
+                                      rng, device)
+            what = (", rows on the device" if on_device else "") + \
+                (", monomial epilogue" if extra else "")
             res = compare(
-                f"ks_inner_product {label}, key {c['key_shape']}",
-                lambda: elementwise.ks_inner_product(digits, kb, ka, rows,
-                                                     mod),
+                f"ks_inner_product {label}, key {c['key_shape']}{what}",
+                lambda: elementwise.ks_inner_product(
+                    digits, kb, ka, rows_t if on_device else rows, mod,
+                    **extra),
                 lambda: elementwise.ks_inner_product_plain(
-                    digits, kb, ka, rows_t, mod),
-                ks_bound(ndig, len(rows), n, len(set(rows))), EXAMPLE_REPS,
-                cold_l2=False)
+                    digits, kb, ka, rows_t, mod, **extra),
+                ks_bound(ndig, R, n, len(set(rows)), on_device,
+                         len(set(extra["mono_rows"].tolist()))
+                         if extra else 0),
+                EXAMPLE_REPS, cold_l2=False)
             out["ks_inner_product"].append({**res, "n": n})
         else:
             mod = modular.make_mod_consts(moduli, device)
@@ -682,9 +727,14 @@ def _ntt_call(x, moduli):
     return ("ntt", tuple(x.shape), tuple(int(q) for q in moduli))
 
 
-def _ks_call(digits, key_b, key_a, rows, mod):
+def _ks_call(digits, key_b, key_a, rows, mod, mono=None, mono_rows=None):
+    # a rows tensor is recorded as such, not by its values (the AP blind
+    # rotation's rows follow the data); an epilogue by its table's shape
+    on_device = isinstance(rows, torch.Tensor)
     return ("ks_inner_product", tuple(digits.shape), tuple(key_b.shape),
-            tuple(int(r) for r in rows), tuple(mod.q.reshape(-1).tolist()))
+            () if on_device else tuple(int(r) for r in rows), on_device,
+            () if mono is None else tuple(mono.shape),
+            tuple(mod.q.reshape(-1).tolist()))
 
 
 def _mac_call(x, y, acc, mod):
@@ -695,8 +745,9 @@ def _mac_call(x, y, acc, mod):
 class CallLog:
     """While entered, every call of the four kernel wrappers (on any device)
     adds its signature to ``calls``: ("ntt", shape, moduli),
-    ("ks_inner_product", digits' shape, the keys' shape, rows, moduli) or
-    ("fused_mac_mod", shape, moduli). The wrappers are swapped for shims on
+    ("ks_inner_product", digits' shape, the keys' shape, the host rows (or
+    () for a rows tensor), whether the rows are a tensor, the monomial
+    table's shape (or ()), moduli) or ("fused_mac_mod", shape, moduli). The wrappers are swapped for shims on
     their modules; each shim carries the wrapper's launch count, which
     goes back to the wrapper on exit."""
 

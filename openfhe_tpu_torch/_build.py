@@ -45,8 +45,8 @@ _SIGNATURES = {
     "ntt_inverse": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "ntt_small_forward": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "ntt_small_inverse": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "ks_inner_product": [_P, _P, _P, _P, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
+    "ks_inner_product": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "fused_mac_mod": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 

@@ -6,15 +6,19 @@
 trees of the package in turn (``PYTHONPATH=<tree> python3 <this file>``),
 each building its own kernels. For every shape, ``ops.ntt.forward`` and
 ``inverse`` on L2-warm inputs: 20 calls captured in one CUDA graph, the
-replay timed with CUDA events, as ``chip_smoke.py`` phase 2 times kernels.
+replay timed with CUDA events (``utils/profiling.graph_ms`` of the tree
+this file sits in, whichever tree is timed; ``chip_smoke.py`` phase 2 times
+kernels the same way).
 A shape a tree refuses (a call over 65,535 rows before the small-ring
 kernel) is reported as refused. Prints the card's name and power limit, one
 line per shape and direction, and a last line of JSON. Needs a CUDA device.
 """
 
+import importlib.util
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,21 +36,14 @@ SHAPES = [((r,), 1, 27, 1024) for r in (1, 2, 6, 24, 96, 6036, 65535,
      ((2,), 3, 55, 128), ((2,), 3, 55, 512)]
 
 
-def graph_us(fn):
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(REPS):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return 1e3 * start.elapsed_time(end) / REPS
+def graph_ms_of_this_tree():
+    """utils/profiling.graph_ms of the tree this file sits in, loaded by
+    path, whichever tree of the package PYTHONPATH times."""
+    path = Path(__file__).resolve().parent.parent / "utils" / "profiling.py"
+    spec = importlib.util.spec_from_file_location("_ntt_times_timer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.graph_ms
 
 
 def main():
@@ -55,6 +52,7 @@ def main():
     from openfhe_tpu_torch.ops import ntt
     from openfhe_tpu_torch.utils import nbtheory
 
+    graph_ms = graph_ms_of_this_tree()
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -75,7 +73,7 @@ def main():
             continue
         for name, fn in (("forward", lambda: ntt.forward(x, moduli)),
                          ("inverse", lambda: ntt.inverse(y, moduli))):
-            us = graph_us(fn)
+            us = 1e3 * graph_ms(fn, REPS)
             print(f"{shape} {bits}-bit {name}: {us:.2f} us", flush=True)
             rows.append({"shape": shape, "bits": bits, "direction": name,
                          "us": us})

@@ -21,7 +21,7 @@ Layout on the device (int64 residues, one modulus Q):
   axes 1 and 3 swapped: ``[T, 2, 2*dg, V, N]``, V = 2 signs (GINX, T = n) or
   B_r values (AP, T = n*d_r). ``ek[t, 0]`` and ``ek[t, 1]`` are the two
   halves of step t as contiguous ``[2*dg, V, N]`` slabs, and the kernel's row
-  index picks the sign (GINX) or the gathered digit's slab (AP). The
+  index picks the sign (GINX) or, read in place, the digit's slab (AP). The
   LMKCDEY key keeps the same layout with V = 1: ``ek`` ``[n, 2, 2*dg, 1, N]``
   (the JAX package's ``[n, 2*dg, 2, N]``) and the two automorphism keys
   ``ak`` ``[2, 2, dg, 1, N]`` (the JAX package's ``[2, dg, 2, N]``);
@@ -29,12 +29,13 @@ Layout on the device (int64 residues, one modulus Q):
 
 One CGGI step is, for each sign: the signed gadget decomposition (one int64
 path for every Q up to 59 bits), the forward NTT of ``[2*dg*B, 1, N]``, the
-digit inner product, a multiply by the (X^c - 1) row of the monomial table,
-the inverse NTT of ``[2*B, 1, N]`` and an add. An LMKCDEY step is an
-external product against ``ek[i]`` (decomposition, NTT, ``ks_inner_product``,
-inverse NTT) or an automorphism X -> X^t, t = 5 or 2N - 5 (a signed
-permutation of both halves, then the one-half key switch back under the
-ring secret, by the same three kernels); its schedule is built on the host
+digit inner product times the (X^c - 1) row of the monomial table (one
+``ks_inner_product`` call, the product in its epilogue), the inverse NTT of
+``[2*B, 1, N]`` and an add. An LMKCDEY step is an external product
+against ``ek[i]`` (decomposition, NTT, ``ks_inner_product``, inverse NTT)
+or an automorphism X -> X^t, t = 5 or 2N - 5 (a signed permutation of both
+halves, then the one-half key switch back under the ring secret, by the
+same three kernels); its schedule is built on the host
 per ciphertext. Every step loop is a Python loop on the card (the
 reference's ``lax.scan``). The sample extraction, both rounding modulus
 switches and the LWE key switch run on the card too; the rounding is exact
@@ -629,7 +630,7 @@ def _blind_rotate_cggi(ctx: BinFHEContext, ek: torch.Tensor,
     p = ctx.params
     N, Q = p.N, p.Q
     B = acc.shape[1]
-    mod, row_mod = _mod(ctx), _row_mod(ctx, B)
+    row_mod = _row_mod(ctx, B)
     mono = _monomial_table(ctx)
     decompose = _make_signed_decompose(p)
     # the rotation target is X^{b - sum a_i s_i}: the s_i = +1 key (sign 0)
@@ -639,9 +640,10 @@ def _blind_rotate_cggi(ctx: BinFHEContext, ek: torch.Tensor,
     for i in range(p.n_lwe):
         for sign in range(2):
             digits = _ntt_nd(decompose(acc), Q)                 # [2dg, B, N]
-            ext = elementwise.ks_inner_product(
-                digits, ek[i, 0], ek[i, 1], sign_rows[sign], row_mod)
-            rotated = mul_mod(ext, mono[exps[i, sign]], mod)     # [2, B, N]
+            # the digit inner product times the (X^c - 1) row, one launch
+            rotated = elementwise.ks_inner_product(
+                digits, ek[i, 0], ek[i, 1], sign_rows[sign], row_mod,
+                mono=mono, mono_rows=exps[i, sign])              # [2, B, N]
             acc = add_mod(acc, _ntt_nd(rotated, Q, inverse=True), Q)
     return acc
 
@@ -662,19 +664,17 @@ def _dm_digit_tensor(ctx: BinFHEContext, a_2n: torch.Tensor) -> torch.Tensor:
 def _blind_rotate_dm(ctx: BinFHEContext, ek: torch.Tensor, acc: torch.Tensor,
                      dig: torch.Tensor) -> torch.Tensor:
     """The n_lwe*d_r DM updates (RingGSWAccumulatorDM::EvalAcc): each step
-    replaces acc by acc (*) ek[t, :, :, digit], the slab gathered per batch
-    element on the card."""
+    replaces acc by acc (*) ek[t, :, :, digit], batch element b reading the
+    key's row dig[t, b] in place."""
     p = ctx.params
     Q = p.Q
     B = acc.shape[1]
     row_mod = _row_mod(ctx, B)
     decompose = _make_signed_decompose(p)
-    batch_rows = tuple(range(B))
     for t in range(dig.shape[0]):
         digits = _ntt_nd(decompose(acc), Q)
-        key = ek[t].index_select(2, dig[t])                  # [2, 2dg, B, N]
-        ext = elementwise.ks_inner_product(digits, key[0], key[1],
-                                           batch_rows, row_mod)
+        ext = elementwise.ks_inner_product(digits, ek[t, 0], ek[t, 1],
+                                           dig[t], row_mod)
         acc = _ntt_nd(ext, Q, inverse=True)
     return acc
 

@@ -100,12 +100,18 @@ def make_mod_consts(moduli: Sequence[int], device=None,
                        str(_build.resolve_device(device)))
 
 
-def check_reduced(x: torch.Tensor, q: torch.Tensor, what: str) -> None:
-    """Debug check (on when OPENFHE_TPU_TORCH_CHECK=1) that kernel inputs
-    are reduced residues in [0, q): the kernels assume it and an unreduced
-    value would silently give wrong bits. Off by default, since it costs a
+def checking() -> bool:
+    """Whether the debug checks of kernel inputs are on
+    (OPENFHE_TPU_TORCH_CHECK=1). Off by default: each costs a
     device-to-host sync."""
-    if os.environ.get("OPENFHE_TPU_TORCH_CHECK") != "1":
+    return os.environ.get("OPENFHE_TPU_TORCH_CHECK") == "1"
+
+
+def check_reduced(x: torch.Tensor, q: torch.Tensor, what: str) -> None:
+    """Debug check (``checking()``) that kernel inputs are reduced residues
+    in [0, q): the kernels assume it and an unreduced value would silently
+    give wrong bits."""
+    if not checking():
         return
     if not bool(((x >= 0) & (x < q)).all()):
         raise ValueError(f"{what}: input residues are not reduced below q")

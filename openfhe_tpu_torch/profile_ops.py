@@ -50,7 +50,9 @@ device time of the NTT forward and inverse kernels and of
 ``ks_inner_product`` by name, their launch counts from the wrappers, and
 the plain-torch kernels that take the most device time; then one external
 product (B = 4) taken apart into its pieces, each with its kernels, device
-time and host time a call; and eval_sign_large at STD128 (input modulus
+time and host time a call (the digit inner product with the monomial
+product in its epilogue as one piece, beside the three pieces it replaced,
+timed off the path); and eval_sign_large at STD128 (input modulus
 q_ks = 2^14, beta = 64: one eval_floor and a sign bootstrap, three blind
 rotations), as the gates. With ``--method LMKCDEY``, BINFHE at
 STD128_LMKCDEY instead (N = 1024, n = 446): key generation, one AND gate
@@ -78,6 +80,7 @@ from .models import bfv, bgv, ckks
 from .models import ckks_bootstrap as boot
 from .ops import ntt, rns
 from .utils import sampling
+from .utils.profiling import graph_ms
 
 RING_DIM = 1 << 16
 TOWERS = 8
@@ -313,25 +316,6 @@ def profile_threshold() -> list:
 STEP_RUNS = 1000      # calls of one piece of an external product
 
 
-def _graph_us(fn, reps: int = 100) -> float:
-    """Device microseconds a call of fn takes: `reps` calls captured in one
-    CUDA graph, the replay timed with CUDA events (no host cost counted)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return 1e3 * start.elapsed_time(end) / reps
-
-
 def _binfhe_step_pieces(binfhe, ctx, bk, B: int = 4) -> list:
     """One CGGI external product at batch B taken apart, each piece on the
     step's shapes: the host time of a call (STEP_RUNS calls
@@ -339,7 +323,11 @@ def _binfhe_step_pieces(binfhe, ctx, bk, B: int = 4) -> list:
     and, for the plain-torch pieces, its kernels (a ``torch.profiler``
     trace of STEP_RUNS calls). On the card a trace of a few dozen
     launches of the ported kernels alone came back short or empty, so
-    their launches are the gate trace's."""
+    their launches are the gate trace's. The step runs the digit inner
+    product and the monomial product as one ``ks_inner_product`` call;
+    the pieces it replaced (the inner product alone, the gather of the
+    monomial rows and the plain ``mul_mod``) are timed beside it, marked
+    off the path."""
     from .ops import elementwise
     from .ops.modular import add_mod, mul_mod
     p = ctx.params
@@ -357,32 +345,39 @@ def _binfhe_step_pieces(binfhe, ctx, bk, B: int = 4) -> list:
     mono_rows = mono[exps]
     rotated = mul_mod(ext, mono_rows, mod)
     back = binfhe._ntt_nd(rotated, p.Q, inverse=True)
-    # (piece, call, plain torch?)
+    # (piece, call, plain torch?, on the step's path?)
     pieces = (
-        ("signed decomposition", lambda: decompose(acc), True),
-        ("NTT forward", lambda: binfhe._ntt_nd(dec, p.Q), False),
-        ("ks_inner_product", lambda: elementwise.ks_inner_product(
-            digits, bk.ek[0, 0], bk.ek[0, 1], (0,) * B, row_mod), False),
-        ("monomial row gather", lambda: mono[exps], True),
-        ("monomial mul_mod", lambda: mul_mod(ext, mono_rows, mod), True),
+        ("signed decomposition", lambda: decompose(acc), True, True),
+        ("NTT forward", lambda: binfhe._ntt_nd(dec, p.Q), False, True),
+        ("ks_inner_product with the monomial epilogue",
+         lambda: elementwise.ks_inner_product(
+             digits, bk.ek[0, 0], bk.ek[0, 1], (0,) * B, row_mod,
+             mono=mono, mono_rows=exps), False, True),
         ("NTT inverse", lambda: binfhe._ntt_nd(rotated, p.Q, inverse=True),
+         False, True),
+        ("add_mod", lambda: add_mod(acc, back, p.Q), True, True),
+        ("ks_inner_product alone", lambda: elementwise.ks_inner_product(
+            digits, bk.ek[0, 0], bk.ek[0, 1], (0,) * B, row_mod), False,
          False),
-        ("add_mod", lambda: add_mod(acc, back, p.Q), True))
+        ("monomial row gather", lambda: mono[exps], True, False),
+        ("monomial mul_mod", lambda: mul_mod(ext, mono_rows, mod), True,
+         False))
     rows = []
-    for name, fn, plain in pieces:
+    for name, fn, plain, on_path in pieces:
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(STEP_RUNS):
             fn()
         torch.cuda.synchronize()
-        row = {"piece": name,
+        row = {"piece": name, "on_path": on_path,
                "host_us": 1e6 * (time.perf_counter() - t0) / STEP_RUNS,
-               "device_us": _graph_us(fn)}
+               "device_us": 1e3 * graph_ms(fn, 100)}
         if plain:
             row["kernels"] = _profile(fn, runs=STEP_RUNS)["kernels_per_op"]
         rows.append(row)
-        print(f"BINFHE STD128 external product (B = {B}), {name}: "
+        print(f"BINFHE STD128 external product (B = {B}), {name}"
+              + ("" if on_path else " (off the path)") + ": "
               + (f"{row['kernels']:.1f} kernels, " if plain else "")
               + f"device {row['device_us']:.1f} us, host "
               f"{row['host_us']:.1f} us a call", flush=True)
@@ -448,7 +443,7 @@ def _lmk_step_pieces(binfhe, ctx, bk) -> list:
         torch.cuda.synchronize()
         row = {"step": name, "steps_a_gate": count,
                "host_us": 1e6 * (time.perf_counter() - t0) / STEP_RUNS,
-               "device_us": _graph_us(fn),
+               "device_us": 1e3 * graph_ms(fn, 100),
                "kernels": _profile(fn, runs=STEP_RUNS)["kernels_per_op"]}
         rows.append(row)
         print(f"BINFHE {ctx.params.method} {name} step: {row['kernels']:.1f} "

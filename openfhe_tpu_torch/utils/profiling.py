@@ -7,7 +7,8 @@ before the device has run them, so wall-clock timing without a synchronise
 measures the enqueue rate, not device time. ``timed`` waits for the devices
 of the tensors registered with ``block_on``, and ``trace`` runs
 ``torch.profiler`` (CPU and CUDA activities) and writes a Chrome trace,
-viewable in Perfetto or ``chrome://tracing``.
+viewable in Perfetto or ``chrome://tracing``. ``graph_ms`` times a short
+call on the device alone, by replaying a CUDA graph of many calls.
 
 Usage::
 
@@ -125,6 +126,37 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of fn() (or of a tuple of functions called
+    in turn) over `reps` calls. The calls are captured in one CUDA graph and
+    the replay is timed with CUDA events, so the host's cost of each call
+    (Python, ctypes) is not counted: for short kernels it exceeds the
+    kernel's own time. A warm-up call first builds every table and cache
+    outside the capture, and one untimed replay precedes the timed one.
+    Raises on a time that is not positive."""
+    calls = fn if isinstance(fn, tuple) else (fn,)
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for f in calls:
+                f()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    if not ms > 0:
+        raise RuntimeError(f"non-positive device time {ms} ms")
+    return ms
 
 
 class OpTimer:

@@ -4,7 +4,9 @@ Runs the port's example programs, ``entry()``'s step and one rank of
 ``dryrun_multichip`` (a one-rank gloo group, the work of phase 24's NCCL
 rank) under ``chip_smoke.CallLog`` and writes each distinct call of the
 NTT, ``ks_inner_product`` and ``fused_mac_mod`` wrappers, with the programs
-that make it, to ``tests/data/example_kernel_calls.json``. Phase 2 holds
+that make it, to ``tests/data/example_kernel_calls.json`` (a
+``ks_inner_product`` call with its rows as a device tensor lists them as
+"device", one with the monomial epilogue its table's shape). Phase 2 holds
 each kernel against its twin at every one of them; phases 23-24 fail if the
 card makes a call the file does not list. The calls do not depend on the
 device, so a CPU run finds them.
@@ -60,7 +62,12 @@ def main():
     for c, programs in sorted(seen.items()):
         entry = {"kernel": c[0], "shape": list(c[1])}
         if c[0] == "ks_inner_product":
-            entry.update(key_shape=list(c[2]), rows=list(c[3]))
+            # (kernel, shape, key shape, rows, rows on the device?, the
+            # monomial table's shape or (), moduli): chip_smoke._ks_call
+            entry.update(key_shape=list(c[2]),
+                         rows="device" if c[4] else list(c[3]))
+            if c[5]:
+                entry.update(mono_shape=list(c[5]))
         entry.update(moduli=list(c[-1]),
                      programs=sorted(programs, key=names.index))
         out.append(entry)

@@ -52,6 +52,21 @@ def test_ntt_kernel_matches_twin(cuda, n, bits, lead):
     assert torch.equal(back.cpu(), ntt.inverse_plain(want, t_cpu))
 
 
+# rings above 2^17 take csrc/ntt.cu's generic radix-2 passes: one and
+# three 60-bit towers at n = 2^18
+@pytest.mark.parametrize("towers,lead", [(1, ()), (3, (2,))])
+def test_ntt_kernel_at_ring_2_18(cuda, towers, lead):
+    n = 1 << 18
+    moduli = tuple(nbtheory.generate_prime_chain(towers, 60, n))
+    x = _uniform(moduli, lead + (n,), seed=towers)
+    t_cpu = ntt.tables(n, moduli, "cpu")
+    got = ntt.forward(x.to(cuda), moduli)
+    assert torch.equal(got.cpu(), ntt.forward_plain(x, t_cpu))
+    back = ntt.inverse(got, moduli)
+    assert torch.equal(back.cpu(), ntt.inverse_plain(got.cpu(), t_cpu))
+    assert torch.equal(back.cpu(), x)
+
+
 def _ntt_counts():
     return (ntt.forward.launches, ntt.inverse.launches,
             ntt.forward_small.launches, ntt.inverse_small.launches)
@@ -291,25 +306,45 @@ def test_ntt_kernel_at_binfhe_shapes(cuda, name, rows, n):
     assert torch.equal(back.cpu(), x)
 
 
-@pytest.mark.parametrize("name,ndig,n,batch,key_rows,rows", [
-    *[("STD128", 6, 1024, b, 2, (sign,) * b) for b in (1, 2, 4, 8, 16)
-      for sign in (0, 1)],
-    *[("STD128Q_3", 4, 2048, 4, 2, (sign,) * 4) for sign in (0, 1)],
-    ("STD128_AP", 6, 1024, 4, 4, (0, 1, 2, 3))])
+@pytest.mark.parametrize(
+    "name,ndig,n,batch,key_rows,rows,epilogue,device_rows", [
+        *[("STD128", 6, 1024, b, 2, (sign,) * b, True, False)
+          for b in (1, 2, 4, 8, 16) for sign in (0, 1)],
+        *[("STD128Q_3", 4, 2048, 4, 2, (sign,) * 4, True, False)
+          for sign in (0, 1)],
+        ("STD128_AP", 6, 1024, 4, 32, (5, 12, 19, 26), False, True),
+        # beyond elementwise.MAX_ROWS_BY_VALUE: the host rows go as a
+        # device index
+        ("STD128", 6, 1024, 130, 2, (1,) * 130, True, False)])
 def test_ks_inner_product_at_binfhe_shapes(cuda, name, ndig, n, batch,
-                                           key_rows, rows):
+                                           key_rows, rows, epilogue,
+                                           device_rows):
     """One external product: digits [2dg, B, N] against the GINX step's
-    slab [2dg, 2 signs, N], every row reading one sign's row, or against the
-    AP step's slab gathered per batch element, row i reading row i."""
+    slab [2dg, 2 signs, N], every row reading one sign's row, times the
+    (X^c - 1) row of each batch element in the epilogue; or against the AP
+    step's slab [2dg, B_r, N], row i reading batch element i's key row
+    from a device index."""
     moduli = (_binfhe_q(name),)
     digits = _uniform(moduli, (ndig, batch, n), seed=1)[..., 0, :]
     kb = _uniform(moduli, (ndig, key_rows, n), seed=2)[..., 0, :]
     ka = _uniform(moduli, (ndig, key_rows, n), seed=3)[..., 0, :]
+    rows_t = torch.tensor(rows)
+    extra = {}
+    if epilogue:
+        mono = _uniform(moduli, (2 * n, n), seed=4)[:, 0, :].contiguous()
+        mono_rows = torch.from_numpy(
+            np.random.default_rng(5).integers(0, 2 * n, batch))
+        extra = {"mono": mono, "mono_rows": mono_rows}
     want = elementwise.ks_inner_product(
-        digits, kb, ka, rows, modular.make_mod_consts(moduli * batch, "cpu"))
+        digits, kb, ka, rows_t if device_rows else rows,
+        modular.make_mod_consts(moduli * batch, "cpu"), **extra)
+    before = elementwise.ks_inner_product.launches
     got = elementwise.ks_inner_product(
-        digits.to(cuda), kb.to(cuda), ka.to(cuda), rows,
-        modular.make_mod_consts(moduli * batch, cuda))
+        digits.to(cuda), kb.to(cuda), ka.to(cuda),
+        rows_t.to(cuda) if device_rows else rows,
+        modular.make_mod_consts(moduli * batch, cuda),
+        **{k: v.to(cuda) for k, v in extra.items()})
+    assert elementwise.ks_inner_product.launches == before + 1
     assert torch.equal(got.cpu(), want)
 
 

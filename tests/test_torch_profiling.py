@@ -1,12 +1,15 @@
 """The port's timing and profiling utilities on CPU tensors: the four cases
 of ``tests/test_profiling.py`` (TIC/TOC, ``timed`` with ``block_on``,
-``OpTimer``'s report, the PROFILELOG switch) and ``trace`` writing a Chrome
-trace that names the operations it saw."""
+``OpTimer``'s report, the PROFILELOG switch), ``trace`` writing a Chrome
+trace that names the operations it saw, and ``graph_ms``'s bookkeeping
+around stand-ins for the CUDA graph and events."""
 
+import contextlib
 import io
 import json
 import os
 
+import pytest
 import torch
 
 from openfhe_tpu_torch.utils import profiling as prof
@@ -61,3 +64,57 @@ def test_trace_writes_a_chrome_trace(tmp_path):
              ["traceEvents"]}
     assert "aten::matmul" in names
     assert any(e.key == "aten::matmul" for e in p.key_averages())
+
+
+class _FakeEvent:
+    def __init__(self, elapsed):
+        self.elapsed = elapsed
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, end):
+        return self.elapsed
+
+
+class _FakeGraph:
+    def replay(self):
+        pass
+
+
+@contextlib.contextmanager
+def _capture(graph):
+    yield
+
+
+def _fake_cuda(monkeypatch, elapsed):
+    """torch.cuda's graph and event calls as stand-ins: the captured calls
+    run once, every timed replay takes `elapsed` ms."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _capture)
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda enable_timing=False: _FakeEvent(elapsed))
+
+
+def test_graph_ms_warms_up_captures_and_averages(monkeypatch):
+    _fake_cuda(monkeypatch, 8.0)
+    calls = {"f": 0, "g": 0}
+
+    def f():
+        calls["f"] += 1
+
+    def g():
+        calls["g"] += 1
+
+    assert prof.graph_ms(f, reps=4) == 2.0
+    assert calls == {"f": 5, "g": 0}      # one warm-up, four captured
+    assert prof.graph_ms((f, g), reps=2) == 4.0
+    assert calls == {"f": 8, "g": 3}
+
+
+@pytest.mark.parametrize("elapsed", [0.0, -1.0])
+def test_graph_ms_rejects_a_non_positive_time(monkeypatch, elapsed):
+    _fake_cuda(monkeypatch, elapsed)
+    with pytest.raises(RuntimeError):
+        prof.graph_ms(lambda: None, reps=3)
