@@ -13,9 +13,9 @@ plaintext arithmetic mod t.
 
 The JAX side is the cost of this file, so its flow runs once and every case
 reads from it, and it runs under ``jax.disable_jit()``: the JAX package's
-own code op by op, the same integers. On an 8-core CPU its jitted key
-switch takes about 100 s a call at n = 128 (the compiled executable, not
-its compilation); op by op the whole flow takes about 2 minutes.
+own code op by op, the same integers. Jitted, compiling the flow costs more
+than running it saves: cold on an 8-core CPU this file took 82 s op by op
+and 100 s jitted.
 """
 
 import jax

@@ -14,8 +14,8 @@ The tests marked ``slow`` run the whole bootstrap of both packages from one
 seed and compare every stage's ciphertext (raised, folded, CoeffsToSlots,
 both sine branches, SlotsToCoeffs) and the decoded slots: the dense path,
 the staged ``level_budget=(2, 2)`` path and the iterative bootstrap. The
-JAX side runs under ``jax.disable_jit()`` (jitted it compiles every op at
-every level). They take long on the CPU and are left out of tier 1
+JAX side runs jitted. Each fixture takes about 9 minutes cold on an 8-core
+CPU (the three tests 18 minutes alone), so they are left out of tier 1
 (``-m 'not slow'``).
 
 Depths: the pipeline spends 15 levels (CoeffsToSlots 1, the sine's
@@ -26,7 +26,6 @@ transforms one more each), so the n = 512 configuration of
 same parameters at depths 18 and 20, which regain 4 towers.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -373,26 +372,22 @@ def _jax_bootstrap_stages(ctx, keys, pre, ct):
 
 
 def _both_bootstraps(params, slots, values, seed, iterative=False, **setup):
-    # the JAX side op by op: jitted, it compiles every op at every level
-    with jax.disable_jit():
-        jctx = jckks.gen_context(jckks.CKKSParams(**params))
-        rng = np.random.default_rng(seed)
-        jpk, jsk = jckks.keygen(jctx, rng)
-        jpre = jboot.setup(jctx, slots=slots, K=16, r=5, cheb_deg=28,
-                           **setup)
-        jkeys = jboot.keygen(jctx, jsk, jpre, rng)
-        jct = jckks.encrypt(jctx, jpk, np.tile(
-            values, jctx.params.num_slots // slots), rng)
-        jlow = jckks.level_reduce(jct, len(jctx.q_moduli) - 1)
-        j = dict(keys=jkeys, low=jlow, stages=_jax_bootstrap_stages(
-            jctx, jkeys, jpre, jlow))
-        j["slots"] = jckks.decrypt(jctx, jsk, j["stages"]["stc"],
-                                   num_slots=slots)
-        if iterative:
-            j["iter"] = jboot.eval_bootstrap_iterative(jctx, jkeys, jpre,
-                                                       jlow)
-            j["iter_slots"] = jckks.decrypt(jctx, jsk, j["iter"],
-                                            num_slots=slots)
+    jctx = jckks.gen_context(jckks.CKKSParams(**params))
+    rng = np.random.default_rng(seed)
+    jpk, jsk = jckks.keygen(jctx, rng)
+    jpre = jboot.setup(jctx, slots=slots, K=16, r=5, cheb_deg=28, **setup)
+    jkeys = jboot.keygen(jctx, jsk, jpre, rng)
+    jct = jckks.encrypt(jctx, jpk, np.tile(
+        values, jctx.params.num_slots // slots), rng)
+    jlow = jckks.level_reduce(jct, len(jctx.q_moduli) - 1)
+    j = dict(keys=jkeys, low=jlow, stages=_jax_bootstrap_stages(
+        jctx, jkeys, jpre, jlow))
+    j["slots"] = jckks.decrypt(jctx, jsk, j["stages"]["stc"],
+                               num_slots=slots)
+    if iterative:
+        j["iter"] = jboot.eval_bootstrap_iterative(jctx, jkeys, jpre, jlow)
+        j["iter_slots"] = jckks.decrypt(jctx, jsk, j["iter"],
+                                        num_slots=slots)
 
     ctx, sk, keys, pre, low = _port_bootstrap(params, slots, values, seed,
                                               **setup)
@@ -434,16 +429,19 @@ def _check_whole(j, t, values):
 
 
 @pytest.mark.slow
+@pytest.mark.timeout(1200)
 def test_dense_bootstrap_equals_jax(dense_both):
     _check_whole(*dense_both, VALUES4)
 
 
 @pytest.mark.slow
+@pytest.mark.timeout(1100)
 def test_staged_bootstrap_equals_jax(staged_both):
     _check_whole(*staged_both, VALUES8)
 
 
 @pytest.mark.slow
+@pytest.mark.timeout(1200)
 def test_iterative_bootstrap_equals_jax(dense_both):
     j, t = dense_both
     assert _same_ct(j["iter"], t["iter"])

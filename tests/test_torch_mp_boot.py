@@ -15,10 +15,10 @@ decryption are ``torch.equal`` to the JAX package's, the slots
 ±q'/2, where a positive lift would wrap, and holds the centered lift to
 the JAX package's and to Python integers.
 
-The JAX flow runs under ``jax.disable_jit()``.
+The JAX flow runs jitted: cold on an 8-core CPU this file took 28 s,
+and 61 s with the flow op by op (under ``jax.disable_jit()``).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -75,8 +75,7 @@ def _flow(ckks_, mp_, where):
 
 @pytest.fixture(scope="module")
 def flows():
-    with jax.disable_jit():
-        jctx, jout = _flow(jckks, jmp, ())
+    jctx, jout = _flow(jckks, jmp, ())
     ctx, out = _flow(ckks, mp, ("cpu",))
     return jctx, jout, ctx, out
 
@@ -186,8 +185,7 @@ def test_centered_lift_near_half(flows):
                                      "cpu").data.numpy()
 
     got = port_lift()
-    with jax.disable_jit():
-        want = jax_lift()
+    want = jax_lift()
     assert np.array_equal(got, want)
     for i, v in enumerate(vals[:len(picks)]):
         centered = v - qp if v >= qp - half else v

@@ -14,7 +14,7 @@ the JAX package's (``torch.equal`` on residues, ``==`` on integer slots,
 arithmetic.
 
 The JAX flows run under ``jax.disable_jit()`` (the JAX package's code op by
-op): its jitted key switch takes about 100 s a call on an 8-core CPU.
+op): cold on an 8-core CPU this file took 147 s op by op and 164 s jitted.
 """
 
 import jax

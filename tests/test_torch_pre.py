@@ -12,10 +12,10 @@ Contexts: CKKS n = 128 (50-bit q0, two 40-bit towers), BGV and BFV n = 128
 ciphertext (BFV's with its noise degree) and decryption is equal to the
 JAX package's; ``flooding_sigma`` is compared with ``==``.
 
-The JAX flows run under ``jax.disable_jit()``.
+The JAX flows run jitted: cold on an 8-core CPU this file took 94 s,
+and 111 s with the flows op by op (under ``jax.disable_jit()``).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -86,8 +86,7 @@ def flows(request):
     scheme = request.param
     jm = {"ckks": jckks, "bgv": jbgv, "bfv": jbfv}[scheme]
     m = {"ckks": ckks, "bgv": bgv, "bfv": bfv}[scheme]
-    with jax.disable_jit():
-        _, jout = _flow(jm, jpre, scheme, ())
+    _, jout = _flow(jm, jpre, scheme, ())
     v, out = _flow(m, pre, scheme, ("cpu",))
     return scheme, v, jout, out
 
